@@ -1,0 +1,222 @@
+"""Seeded small-grid inputs for the three SPH sub-step kernels, and the
+test that holds each CUDA kernel against its plain PyTorch version on the
+card. This file imports no jax, so it runs where the kernels run:
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda
+
+Without a GPU the CUDA test skips with a reason. The plain versions are
+held against the JAX package's Pallas kernels in test_torch_sph_kernels.py,
+on these same inputs."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from lpe_tpu_torch.core.config import FluidConfig
+from lpe_tpu_torch.ops import sph_kernels as SK
+
+NY = NX = 8
+K, NT, TX = 16, 1, 128
+W = NT * TX
+ROWS = NY + 2
+FC = FluidConfig()
+H = FC.grid.smoothing_length
+CELL = H
+EPS = FC.grid.grid_epsilon
+GMIN = -2
+SUB_DT = 1.0 / 120 / FC.num_sub_steps
+HALF_DT = 0.5 * SUB_DT
+LIM = 0.45 * CELL
+MIG = dict(nx=NX, half_dt=HALF_DT, sub_dt=SUB_DT, lim=LIM, cell=CELL,
+           eps=EPS, gmin=GMIN)
+SWEEP = dict(h=H, poly6=4.0 / (np.pi * H ** 8),
+             spiky=-30.0 / (np.pi * H ** 5), visc_lap=40.0 / (np.pi * H ** 5),
+             viscosity=FC.viscosity,
+             min_d2=FC.numerical.min_distance_threshold,
+             min_rho=FC.numerical.min_density_threshold,
+             stiffness=FC.stiffness, rest_density=FC.rest_density)
+V = 4                                   # vertex ring of the test rigids
+WP = SK.rig_width(V)
+
+
+def _make_st(seed=0):
+    """A seeded ST stack: dense blobs (5-9 per cell), some particles stored
+    2-3 cells away from their position (the >1-cell walk), and one cell
+    whose 3x3 neighbourhood sends it more than K candidates."""
+    rng = np.random.default_rng(seed)
+    st = np.zeros((ROWS, 9, K, W), np.float32)
+    nxt = {}
+    pid = [0]
+
+    def put(r, c, x, y, vx=0.0, vy=0.0, ax=0.0, ay=0.0):
+        s = nxt.get((r, c), 0)
+        if s >= K:
+            return
+        nxt[(r, c)] = s + 1
+        pid[0] += 1
+        st[r + 1, :, s, c + 1] = (x, y, vx, vy, ax, ay, 0.005, pid[0], 1.0)
+
+    for r in range(2, 7):
+        for c in range(2, 7):
+            for _ in range(int(rng.integers(5, 10))):
+                x = (c - 2 + rng.uniform(0.02, 0.98)) * CELL
+                y = (r - 2 + rng.uniform(0.02, 0.98)) * CELL
+                put(r, c, x, y, *rng.uniform(-0.6, 0.6, 2),
+                    *rng.uniform(-80.0, 80.0, 2))
+    # crowd: cell (4, 4) full, its neighbours push 8 more candidates in
+    tx_, ty_ = 2.5 * CELL, 2.5 * CELL
+    for _ in range(K):
+        put(4, 4, tx_ + rng.uniform(-0.4, 0.4) * CELL,
+            ty_ + rng.uniform(-0.4, 0.4) * CELL)
+    for (r, c) in ((3, 4), (5, 4), (4, 3), (4, 5), (3, 3), (5, 5), (3, 5),
+                   (5, 3)):
+        put(r, c, tx_ + rng.uniform(-0.3, 0.3) * CELL,
+            ty_ + rng.uniform(-0.3, 0.3) * CELL)
+    # multi-cell moves: stored far from the cell of their position
+    put(1, 1, 5.5 * CELL, 4.5 * CELL)        # 3 rows, 4 cols away
+    put(7, 7, 0.5 * CELL, 0.5 * CELL)
+    put(6, 1, 0.3 * CELL, 3.5 * CELL, vx=2.0)
+    return st
+
+
+def _rig_row(px, py, vx, vy, om, mass, inertia, rad, circle, verts):
+    """One candidate parameter row (sph_kernels RW_* layout)."""
+    if circle:
+        mnx, mny, mxx, mxy = px - rad, py - rad, px + rad, py + rad
+        wv = np.zeros((V, 2))
+    else:
+        wv = np.asarray(verts, np.float64) + (px, py)
+        wv = np.concatenate([wv, np.repeat(wv[:1], V - len(wv), 0)])
+        mnx, mny = wv.min(0)
+        mxx, mxy = wv.max(0)
+    row = np.zeros(WP, np.float32)
+    row[:13] = (px, py, vx, vy, om, mass, inertia, rad, float(circle),
+                mnx, mny, mxx, mxy)
+    row[13:13 + 2 * V] = wv.reshape(-1)
+    return row
+
+
+def _rigids():
+    """Small rigids over the particle blob: a square, a triangle and a
+    circle (the rasterized slots) and one long wall (the big table)."""
+    sq = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]]) * 0.03
+    tri = np.array([[0.0, -0.035], [0.03, 0.02], [-0.03, 0.02]])
+    small = [_rig_row(0.13, 0.13, 0.1, -0.2, 0.8, 2.0, 1e-3, 0.04, False, sq),
+             _rig_row(0.21, 0.10, 0.0, 0.1, -1.2, 0.05, 5e-4, 0.035, False,
+                      tri),
+             _rig_row(0.09, 0.22, -0.1, 0.0, 0.3, 1.0, 1e-3, 0.03, True,
+                      None)]
+    wall = _rig_row(0.15, 0.23, 0.0, 0.0, 0.0, 1e30, 0.0, 0.15, False,
+                    np.array([[-0.15, -0.02], [0.15, -0.02], [0.15, 0.02],
+                              [-0.15, 0.02]]))
+    return np.stack(small), wall[None]
+
+
+def _raster(small, S=8, slack=CELL):
+    """fld [rows, S, Wp, W] and its (row, slot, column) -> rigid map: the
+    rigids whose slack-widened AABB covers a cell, in table order."""
+    fld = np.zeros((ROWS, S, WP, W), np.float32)
+    body = np.full((ROWS, S, W), -1)
+    for r in range(ROWS):
+        y0, y1 = (r - 3) * CELL - slack, (r - 2) * CELL + slack
+        for c in range(NX + 2):
+            x0, x1 = (c - 3) * CELL - slack, (c - 2) * CELL + slack
+            s = 0
+            for j, row in enumerate(small):
+                if row[9] <= x1 and row[11] >= x0 and row[10] <= y1 \
+                        and row[12] >= y0:
+                    fld[r, s, :, c] = row
+                    body[r, s, c] = j
+                    s += 1
+    return fld, body
+
+
+def _cn():
+    fc, psv, isv = FC, FC.position_solver, FC.impulse_solver
+    return dict(
+        min_safe_distance=psv.min_safe_distance,
+        safety_margin=psv.safety_margin, relax_factor=psv.relax_factor,
+        max_correction=psv.max_correction,
+        min_position_change=psv.min_position_change,
+        boundary_offset=fc.grid.boundary_offset,
+        min_penetration=isv.min_penetration,
+        max_safe_velocity_sq=isv.max_safe_velocity_sq,
+        rest_density=fc.rest_density,
+        depth_transition_rate=isv.depth_transition_rate,
+        depth_scale=isv.depth_scale,
+        depth_estimate_scale=isv.depth_estimate_scale,
+        gravity=fc.gravity, max_force=isv.max_force,
+        pressure_force_ratio=isv.pressure_force_ratio,
+        min_rel_velocity=isv.min_rel_velocity, viscosity=fc.viscosity,
+        viscosity_scale=isv.viscosity_scale, sub_dt=SUB_DT,
+        viscous_force_ratio=isv.viscous_force_ratio,
+        buoyancy_strength=isv.buoyancy_strength, max_torque=isv.max_torque,
+        angular_damping_threshold=isv.angular_damping_threshold,
+        angular_damping_factor=isv.angular_damping_factor,
+        fluid_force_scale=isv.fluid_force_scale,
+        fluid_force_max=isv.fluid_force_max,
+        any_circle=True, any_poly=True)
+
+
+def assert_st_close(a, b):
+    """ST stacks: planes within atol 1e-5, except the acceleration planes,
+    which carry forces of order 1e4 on the dense test blobs and are held
+    to 1e-6 of their largest value (a few float32 ulps of the
+    back-reaction sum)."""
+    a, b = np.asarray(a), np.asarray(b)
+    acc = [SK.ST_AX, SK.ST_AY]
+    rest = [f for f in range(9) if f not in acc]
+    np.testing.assert_allclose(a[:, rest], b[:, rest], rtol=0, atol=1e-5)
+    scale = np.abs(b[:, acc]).max()
+    np.testing.assert_allclose(a[:, acc], b[:, acc], rtol=0,
+                               atol=max(1e-5, 1e-6 * scale))
+
+
+def assert_sweep_close(a, b, occ):
+    """(rho, fx, fy) on the occupied slots: rho to rtol 1e-5, forces
+    elementwise to rtol 1e-5 plus 1e-6 of the force scale (the stiff EOS
+    turns ULP-level rho reassociation into force noise,
+    tests/test_sph.py:248-254)."""
+    (rho_a, fx_a, fy_a), (rho_b, fx_b, fy_b) = \
+        [[np.asarray(v) for v in t] for t in (a, b)]
+    np.testing.assert_allclose(rho_a[occ], rho_b[occ], rtol=1e-5)
+    fscale = np.abs(np.stack([fx_b, fy_b])[:, occ]).max()
+    for u, v in ((fx_a, fx_b), (fy_a, fy_b)):
+        np.testing.assert_allclose(u[occ], v[occ], rtol=1e-5,
+                                   atol=1e-6 * fscale)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain():
+    """Each CUDA kernel against its plain version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    SK.reset_counters()
+    t = torch.from_numpy(_make_st()).cuda()
+    m9 = SK.migrate(t, **MIG)
+    torch.testing.assert_close(m9, SK.migrate_plain(t, **MIG), rtol=0,
+                               atol=0)
+    occ = (m9[1:-1, SK.M9_OCC] > 0).cpu().numpy()
+    sw = SK.pair_sweep(m9, **SWEEP)
+    assert_sweep_close([v.cpu() for v in sw],
+                       [v.cpu() for v in SK.pair_sweep_plain(m9, **SWEEP)],
+                       occ)
+    small, wall = _rigids()
+    fld, _ = _raster(small)
+    big = np.concatenate([wall, np.zeros((1, WP), np.float32)])
+    cpl = (m9[:, SK.M9_OCC].sum(1) > 0).to(torch.int32).contiguous()
+    cn = dict(_cn(), V=V, half_dt=HALF_DT, stiffness=FC.stiffness)
+    args = [cpl, torch.from_numpy(fld).cuda(), torch.from_numpy(big).cuda(),
+            m9, *sw]
+    out_k = [v.cpu() for v in SK.coupling9(*args, cn=cn)]
+    out_p = [v.cpu() for v in SK.coupling9_plain(*args, cn=cn)]
+    assert_st_close(out_k[0], out_p[0])
+    for u, v in zip(out_k[1:], out_p[1:]):
+        torch.testing.assert_close(u, v, rtol=0, atol=1e-5)
+    assert [op.launches for op in SK.OPS] == [1, 1, 1]
+
+
+def test_fluid_config_tree_is_the_one_tested():
+    # the constants above come from the port's default FluidConfig
+    assert dataclasses.asdict(FC)["grid"]["max_per_cell"] == K
