@@ -8,18 +8,35 @@ Run from the root of a checkout, with one CUDA card:
 Phases (any failure raises and exits non-zero, printing no result):
   1. require CUDA; print the card (nvidia-smi name, power limit), torch and
      CUDA versions;
-  2. build the three CUDA kernels of ops/csrc/ with nvcc (timed);
+  2. build the four CUDA kernels of ops/csrc/ with nvcc (timed);
   3. at the DAM_BREAK 100k shapes (the grid of the dam scene 40 ticks into
-     its collapse), hold each kernel against its plain PyTorch version and
-     time both with CUDA events;
+     its collapse), hold each SPH kernel against its plain PyTorch version
+     and time both with CUDA events;
   4. run DAM_BREAK 100k through build_run_fn(ticks=10): the state must be
-     finite and every kernel must have launched (and no plain version run);
+     finite and every SPH kernel must have launched (and no plain version
+     run);
   5. run SIMPLE_FLUID through build_tick_fn for 120 ticks: the fluid falls
      and pools (y-mean from 3.0 toward ~5.5), and a second run from the
      same seed is bitwise equal;
   6. run one dam block under torch.cuda.set_sync_debug_mode("error"): a
      tick makes no host sync;
-  7. print the kernels' JSON line, then the result line.
+  7. run RIGID_STACKS 10k (the bench's rigid config) through
+     build_run_fn(ticks=10): finite, every body inside the tank, the bodies
+     fall (mean y rises; screen-down is +y), the narrowphase kernel
+     launched and its plain version never ran, and two 30-tick runs from
+     seed 0 are bitwise equal; ticks/s and the guard's host reads per tick
+     printed. The grid's capacities (core.telemetry) are printed at ticks 0
+     and 40: this config saturates its candidate rows from tick 0 in
+     lpe_tpu too (scripts/rigid_stacks_saturation.py: 73% of the AABB
+     pairs beyond the class caps, 2.3% of the bodies beyond a cell's 48
+     slots by tick 40), so the phase holds the bodies dropped from the
+     grid under RIGID_MAX_DROP rather than at zero;
+  8. at the rows of that run's state 40 ticks in (82,944 a tick), hold the
+     narrowphase kernel against its plain version and time both;
+  9. print the kernels' JSON line, then the result line.
+Every kernel's line carries its bound: the larger of the bytes it must
+move over 3.35 TB/s and the operations this run's data needs over the
+67 TFLOP/s fp32 rate (H100 SXM, published peaks).
 This script imports no jax and nothing of the lpe_tpu package.
 """
 from __future__ import annotations
@@ -32,6 +49,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DAM_N = 100_000
+RIGID_N = 10_000
 BLOCK = 10
 WARM_BLOCKS = 4      # dam blocks run before the kernel check (phase 3)
 KERNEL_INFO = {   # name -> (CUDA source, the Pallas kernel it replaces)
@@ -41,7 +59,21 @@ KERNEL_INFO = {   # name -> (CUDA source, the Pallas kernel it replaces)
                    "lpe_tpu/ops/pallas_sph.py:804"),
     "coupling9": ("lpe_tpu_torch/ops/csrc/coupling9.cu",
                   "lpe_tpu/ops/pallas_sph.py:664"),
+    "narrowphase": ("lpe_tpu_torch/ops/csrc/narrowphase.cu",
+                    "lpe_tpu/ops/pallas_rigid.py:47"),
 }
+# H100 SXM published peaks (NVIDIA's data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# operation counts of the work, per unit of this run's data (estimates from
+# the kernels' arithmetic): a fluid particle's kick, drift and re-bin; a
+# particle pair of the 3x3 neighbourhood in the density pass and the force
+# pass; a particle-candidate pair of the coupling (per vertex and fixed)
+# bodies beyond a cell's slots at tick 40 (lpe_tpu on the CPU: 0.0232)
+RIGID_MAX_DROP = 0.05
+MIGRATE_OPS = 20
+PAIR_OPS = 60
+CPL_OPS_PER_VERT, CPL_OPS = 25, 60
 
 
 def fail(msg: str) -> None:
@@ -73,6 +105,29 @@ def cuda_ms(fn, reps: int = 20) -> float:
 
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes, ops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``n_bytes`` or to do ``ops`` fp32 operations, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def neighbour_pairs(occ):
+    """Occupied (particle, neighbour slot) pairs over the 3x3 cells of each
+    particle: occ [rows, K, cols] of 0/1."""
+    import torch
+    n = occ.sum(1).double()                        # particles per cell
+    p = torch.nn.functional.pad(n, (1, 1, 1, 1))
+    nb = sum(p[1 + dy:p.shape[0] - 1 + dy, 1 + dx:p.shape[1] - 1 + dx]
+             for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    return float((n * nb).sum())
 
 
 def check_kernels(dev):
@@ -200,11 +255,24 @@ def check_kernels(dev):
                       cuda_ms(lambda: SK.coupling9_plain(*args2, cn=ck),
                               5)),
     }
-    for name in KERNEL_INFO:
+    n_occ = float(occ.sum())
+    live2 = (M9[:, SK.M9_OCC] > 0) & (args2[0] > 0)[:, None, :]
+    outk = SK.coupling9(*args2, cn=ck)
+    bounds = {
+        "migrate": bound(nbytes(ST, M9), MIGRATE_OPS * n_occ),
+        "pair_sweep": bound(nbytes(M9, *sw),
+                            PAIR_OPS * neighbour_pairs(occ.to(torch.int32))),
+        "coupling9": bound(
+            nbytes(*args2, *outk),
+            float(live2.sum()) * (1 + len(sc.spec.solid_big_idx))
+            * (CPL_OPS_PER_VERT * ck["V"] + CPL_OPS)),
+    }
+    for name in bounds:
         print(f"kernel {name}: max_abs_err {errs[name]:.3e}  "
-              f"kernel {times[name][0]:.4f} ms  plain {times[name][1]:.4f} ms",
+              f"kernel {times[name][0]:.4f} ms  plain {times[name][1]:.4f} ms"
+              f"  bound {bounds[name][0]:.4f} ms ({bounds[name][1]})",
               flush=True)
-    return errs, times
+    return errs, times, bounds
 
 
 def run_dam(dev, card):
@@ -278,6 +346,128 @@ def run_simple_fluid(dev, card):
     print("simple_fluid: two runs from seed 0 are bitwise equal", flush=True)
 
 
+def rigid_run(dev, ticks):
+    """RIGID_STACKS 10k from seed 0 through build_run_fn(ticks=10)."""
+    from lpe_tpu_torch.scenarios.bench_scenes import build_rigid_stacks
+    from lpe_tpu_torch.systems import build_run_fn
+    sc = build_rigid_stacks(RIGID_N, seed=0, device=dev)
+    run = build_run_fn(sc.spec, sc.cfg, ticks=BLOCK, device=dev)
+    state = sc.state
+    for _ in range(ticks // BLOCK):
+        state = run(state)
+    return sc, run, state
+
+
+def run_rigid(dev, card):
+    """Phase 7: RIGID_STACKS 10k, counted launches, saturation, ticks/s and
+    the guard's host reads, and bitwise repeatability."""
+    import torch
+    from lpe_tpu_torch.core.telemetry import capacity_report
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    from lpe_tpu_torch.systems.rigid.grid_pipeline import grid_dims
+
+    sc, run, state = rigid_run(dev, 0)
+    rep0 = capacity_report(state, sc.spec, sc.cfg)
+    state = run(state)                           # warm-up block
+    S = sc.spec.n_solid
+    gd = grid_dims(sc.spec, sc.cfg)
+    rows = gd["NC"] * gd["R"]
+    print(f"rigid {RIGID_N}: {S} solids, grid {gd['nbx']}x{gd['nbx']} cells "
+          f"of {gd['KB']} slots, class caps {gd['caps']}, {rows} "
+          f"narrowphase rows a tick", flush=True)
+    step = run.systems["rigid"]
+    blocks = 3
+    torch.cuda.synchronize()
+    RK.reset_counters()
+    step.guard_reads = step.rebuilds = 0
+    t0 = time.perf_counter()
+    for _ in range(blocks):
+        state = run(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = RK.narrowphase.launches
+    plain = RK.narrowphase.plain_calls
+    ticks = blocks * BLOCK
+    if launches != ticks or plain != 0:
+        fail(f"rigid: narrowphase launches {launches}, plain calls {plain} "
+             f"in {ticks} ticks")
+    pos = state.bodies.pos[:S]
+    dyn = ~state.bodies.boundary[:S]
+    size = sc.cfg.shared.universe_size_m
+    if not bool(torch.isfinite(pos).all()):
+        fail("rigid: non-finite positions")
+    if not bool(((pos[dyn] >= 0.0) & (pos[dyn] <= size)).all()):
+        fail("rigid: a body left the tank")
+    y0 = float(sc.state.bodies.pos[:S][dyn, 1].mean())
+    y1 = float(pos[dyn, 1].mean())
+    if not y1 > y0:
+        fail(f"rigid: mean y {y0} -> {y1} did not rise")
+    rep = capacity_report(state, sc.spec, sc.cfg)
+    for tick, r in ((0, rep0), (int(state.tick), rep)):
+        print(f"rigid {RIGID_N} capacities at tick {tick}: bodies per cell "
+              f"max {r['rigid_grid_slots']['max']} of {gd['KB']}, dropped "
+              f"frac {r['rigid_grid_slots']['frac']:.4f}; candidate rows "
+              f"frac {r['rigid_grid_rows']['frac']:.4f}, max per class "
+              f"{r['rigid_grid_rows']['max']}", flush=True)
+    if rep["rigid_grid_slots"]["frac"] > RIGID_MAX_DROP:
+        fail(f"rigid: {rep['rigid_grid_slots']} bodies dropped from the grid")
+    tps = ticks / dt
+    print(f"rigid {RIGID_N}: {tps:.2f} ticks/s over {blocks} blocks of "
+          f"{BLOCK} (host clock, synchronized) on {card}; narrowphase "
+          f"launches {launches}, plain calls {plain}; guard host reads "
+          f"{step.guard_reads / ticks:.2f} a tick, rebuilds {step.rebuilds} "
+          f"of {ticks} ticks; mean y {y0:.4f} -> {y1:.4f}", flush=True)
+
+    finals = [rigid_run(dev, 30)[2] for _ in range(2)]
+    for name in ("pos", "vel", "angle", "omega"):
+        if not torch.equal(getattr(finals[0].bodies, name),
+                           getattr(finals[1].bodies, name)):
+            fail(f"rigid: two 30-tick runs from one seed differ in {name}")
+    print("rigid: two 30-tick runs from seed 0 are bitwise equal", flush=True)
+    return launches, run, state
+
+
+def check_narrowphase(state, run):
+    """Phase 8: the narrowphase kernel against its plain version at the
+    rigid-10k rows of ``state``, with the tolerances of the JAX package's
+    Pallas-vs-XLA test (tests/test_pallas_rigid.py:52-65)."""
+    import torch
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    args = run.systems["rigid"].narrowphase_inputs(state)
+    got = RK.narrowphase(*args)
+    ref = RK.narrowphase_plain(*args)
+    if not torch.equal(got[0], ref[0]) or not torch.equal(got[5], ref[5]):
+        fail("narrowphase: hit or contact masks differ from the plain "
+             "version")
+    pen_k, pen_p = got[2], ref[2]
+    fin = torch.isfinite(pen_p)
+    if not torch.equal(fin, torch.isfinite(pen_k)):
+        fail("narrowphase: the rows of infinite depth differ")
+    cv = ref[5]
+    err = {"nrm": max_err(got[1], ref[1]),
+           "pen": max_err(pen_k[fin], pen_p[fin]),
+           "pts": max_err(got[3][cv], ref[3][cv]),
+           "pens": max_err(got[4][cv], ref[4][cv])}
+    n_rows, n_hit = ref[0].numel(), int(ref[0].sum())
+    print(f"narrowphase: {n_rows} rows, {n_hit} hits, {int(cv.sum())} "
+          f"contacts; max abs err {err}", flush=True)
+    if max(err["nrm"], err["pen"]) > 1e-5 or \
+            max(err["pts"], err["pens"]) > 1e-4:
+        fail("narrowphase differs from its plain version")
+    times = (cuda_ms(lambda: RK.narrowphase(*args)),
+             cuda_ms(lambda: RK.narrowphase_plain(*args), 5))
+    # operations this data needs per row, by the rings' vertex counts n =
+    # na + nb: n^2 projections of 3 each, ~24 per vertex for the world ring,
+    # centroid and face normals, ~40 for the clip
+    n = (args[3] + args[7]).double().clamp(min=0)
+    ops = float((3 * n * n + 24 * n + 40).sum())
+    bnd = bound(nbytes(*args, *got), ops)
+    print(f"kernel narrowphase: max_abs_err {max(err.values()):.3e}  kernel "
+          f"{times[0]:.4f} ms  plain {times[1]:.4f} ms  bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})", flush=True)
+    return max(err.values()), times, bnd
+
+
 def main() -> int:
     try:
         import torch
@@ -311,7 +501,7 @@ def main() -> int:
             print("  nvcc:", line.strip(), flush=True)
 
     # 3.-6.
-    errs, times = check_kernels(dev)
+    errs, times, bounds = check_kernels(dev)
     launches, run, state = run_dam(dev, card)
     run_simple_fluid(dev, card)
     torch.cuda.synchronize()
@@ -324,10 +514,17 @@ def main() -> int:
     print("dam block under set_sync_debug_mode('error'): no host sync",
           flush=True)
 
-    # 7. results
+    # 7.-8.
+    launches["narrowphase"], rrun, rstate = run_rigid(dev, card)
+    errs["narrowphase"], times["narrowphase"], bounds["narrowphase"] = \
+        check_narrowphase(rstate, rrun)
+
+    # 9. results: no single PyTorch call computes any of these kernels
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], max_abs_err=errs[name],
-                    ms=times[name][0], plain_ms=times[name][1])
+                    ms=times[name][0], plain_ms=times[name][1],
+                    bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                    library_ms=None)
                for name, (src, rep) in KERNEL_INFO.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

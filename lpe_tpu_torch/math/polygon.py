@@ -1,6 +1,7 @@
 """Host-side polygon construction helpers (NumPy), copied from
-``lpe_tpu/math/polygon.py``: the regular-polygon builder and the polygon
-inertia formula that scene builders use for rigid entities.
+``lpe_tpu/math/polygon.py``: the regular-polygon builder, the random
+convex polygon and the polygon inertia formula that scene builders use for
+rigid entities.
 """
 from __future__ import annotations
 
@@ -15,6 +16,20 @@ def build_regular_polygon(sides: int, size: float) -> np.ndarray:
     k = np.arange(sides, dtype=np.float64)
     ang = 2.0 * np.pi * k / sides
     return np.stack([size * np.cos(ang), -size * np.sin(ang)], axis=-1)
+
+
+def build_random_convex_polygon(rng: np.random.Generator,
+                                size: float) -> np.ndarray:
+    """Random convex-ish polygon, 3-7 sides, radius in [size/2, size].
+    Draws from ``rng`` in the order ``lpe_tpu`` does, so scenes built from
+    one seed are bitwise equal.
+
+    reference: include/math/polygon.hpp:178-199.
+    """
+    sides = int(rng.integers(3, 8))
+    ang = 2.0 * np.pi * np.arange(sides) / sides
+    r = rng.uniform(0.5 * size, size, sides)
+    return np.stack([r * np.cos(ang), -r * np.sin(ang)], axis=-1)
 
 
 def calculate_polygon_inertia(vertices: np.ndarray, mass: float) -> float:

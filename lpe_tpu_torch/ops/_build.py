@@ -1,8 +1,9 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
 The sources are compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which
-``ctypes`` loads. The library lives in ``build/lpe_tpu_torch/`` at the root
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, which ``ctypes``
+loads. The library lives in ``build/lpe_tpu_torch/`` at the root
 of the checkout, under a name keyed by a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one is reused. Each C entry
 launches on the caller's stream (PyTorch's current stream), allocates
@@ -21,14 +22,14 @@ import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("common.cuh", "migrate.cu", "pair_sweep.cu", "coupling9.cu")
+SOURCES = ("common.cuh", "migrate.cu", "pair_sweep.cu", "coupling9.cu",
+           "narrowphase.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lpe_tpu_torch"
 # --fmad=false: no contraction of a*b+c into one rounding, so the kernels
 # round like the plain PyTorch ops they are held against. No fast math:
 # it would change sqrt and division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _f, _i = ctypes.c_float, ctypes.c_int
 
@@ -69,6 +70,10 @@ class CoupleParams(ctypes.Structure):
                 ("fluid_force_max", _f), ("two_thirds", _f)]
 
 
+class NarrowParams(ctypes.Structure):
+    _fields_ = [("N", _i), ("V", _i)]
+
+
 def couple_params(rows, K, W, S, NBIG, cn) -> CoupleParams:
     from .sph_kernels import rig_width
     mf = cn["max_force"]
@@ -94,6 +99,7 @@ _ENTRIES = {   # name -> (number of tensor arguments, params type)
     "lpe_migrate": (2, MigrateParams),
     "lpe_pair_sweep": (4, SweepParams),
     "lpe_coupling9": (10, CoupleParams),
+    "lpe_narrowphase": (16, NarrowParams),
 }
 _lib = None
 build_log = ""           # nvcc's report (-Xptxas -v) of this process's build
@@ -117,7 +123,7 @@ def library_path() -> Path:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libsph_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"liblpe_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -127,13 +133,33 @@ def build() -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES if s.endswith(".cu")]]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+    objs, procs = [], []
+    for src in (s for s in SOURCES if s.endswith(".cu")):
+        obj = tmp.with_name(f"{tmp.name}.{Path(src).stem}.o")
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+             str(CSRC / src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, proc in procs:
+        logs.append(f"== {src}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(src)
+    if not failed:
+        r = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
+        logs.append(f"== link\n{r.stdout}{r.stderr}")
+        if r.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           f"{build_log}")
     os.replace(tmp, out)
     return out
 

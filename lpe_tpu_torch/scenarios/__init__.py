@@ -20,8 +20,8 @@ def register(sim_type: SimulationType):
     return deco
 
 
-def create_scenario(sim_type: SimulationType, seed: int = 0, *, device,
-                    **kw) -> Scene:
+def create_scenario(sim_type: SimulationType, seed: int = 0, *,
+                    device="cuda", **kw) -> Scene:
     from . import simple_fluid  # noqa: F401
     if isinstance(sim_type, str):
         sim_type = SimulationType[sim_type]

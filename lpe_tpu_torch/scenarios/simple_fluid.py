@@ -62,7 +62,7 @@ def add_tank_walls(b: SceneBuilder, size: float, half_wall: float, mass,
 
 @register(SimulationType.SIMPLE_FLUID)
 def build(seed: int = 0, ec: SimpleFluidConfig | None = None, *,
-          device) -> Scene:
+          device="cuda") -> Scene:
     ec = ec or SimpleFluidConfig()
     cfg = make_config(ec)
     size = cfg.shared.universe_size_m

@@ -7,11 +7,15 @@ Rotation -> Movement -> Sleep.
 The counterpart of ``lpe_tpu/systems/__init__.py``. ``build_tick_fn``
 resolves which systems exist for a scene at build time and returns one
 function ``SimState -> SimState``; ``build_run_fn`` advances a block of
-ticks, keeping the fluid grid resident across the block when it can.
-PyTorch runs eagerly, so ``jit``, ``donate`` and ``named_scope`` have no
-counterpart here.
+ticks, keeping the fluid grid resident across the block when it can. Both
+returned functions carry ``.systems``, the dict of their systems by name.
+PyTorch runs eagerly, so ``jit`` and ``donate`` have no counterpart here;
+each system runs inside a ``torch.profiler.record_function`` range of its
+name, as lpe_tpu's run inside a ``jax.named_scope``.
 """
 from __future__ import annotations
+
+from torch.profiler import record_function
 
 from ..core.config import ScenarioSystemConfig
 from ..scene import SceneSpec
@@ -40,28 +44,30 @@ def build_system_list(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     addn("fluid", make_fluid(spec, cfg, device=device, mesh=fluid_mesh))
     addn("boundary", simple.make_boundary(spec, cfg))
     addn("gravity", simple.make_gravity(spec, cfg))
-    addn("rigid", make_rigid(spec, cfg))
+    addn("rigid", make_rigid(spec, cfg, device=device))
     addn("rotation", simple.make_rotation(spec, cfg))
     addn("movement", simple.make_movement(spec, cfg))
     addn("sleep", simple.make_sleep(spec, cfg))
     return systems
 
 
-def build_tick_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *, device,
-                  fluid_mesh=None):
+def build_tick_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
+                  device="cuda", fluid_mesh=None):
     systems = build_system_list(spec, cfg, device=device,
                                 fluid_mesh=fluid_mesh)
 
     def tick(state: SimState) -> SimState:
-        for _, fn in systems:
-            state = fn(state)
+        for name, fn in systems:
+            with record_function(name):
+                state = fn(state)
         return state.replace(tick=state.tick + 1)
 
+    tick.systems = dict(systems)
     return tick
 
 
 def build_run_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *, ticks: int,
-                 device, fluid_mesh=None):
+                 device="cuda", fluid_mesh=None):
     """Advance ``ticks`` ticks per call.
 
     When the fluid runs grid-resident and no other system needs per-tick
@@ -82,22 +88,25 @@ def build_run_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *, ticks: int,
     if not cross_tick:
         def run(state: SimState) -> SimState:
             for _ in range(ticks):
-                for _, fn in systems:
-                    state = fn(state)
+                for name, fn in systems:
+                    with record_function(name):
+                        state = fn(state)
                 state = state.replace(tick=state.tick + 1)
             return state
+        run.systems = sysd
         return run
 
     def tick_ct(state: SimState, D):
         for name, fn in systems:
-            if name == "fluid":
-                state, D = fl.grid_tick(state, D)
-            else:
-                state = fn(state)
-                if name == "boundary":
-                    D = fl.grid_boundary(D)
-                elif name == "gravity":
-                    D = fl.grid_gravity(state, D)
+            with record_function(name):
+                if name == "fluid":
+                    state, D = fl.grid_tick(state, D)
+                else:
+                    state = fn(state)
+                    if name == "boundary":
+                        D = fl.grid_boundary(D)
+                    elif name == "gravity":
+                        D = fl.grid_gravity(state, D)
         return state.replace(tick=state.tick + 1), D
 
     def run(state: SimState) -> SimState:
@@ -106,4 +115,5 @@ def build_run_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *, ticks: int,
             state, D = tick_ct(state, D)
         return fl.grid_readback(state, D)
 
+    run.systems = sysd
     return run

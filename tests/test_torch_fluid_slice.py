@@ -14,6 +14,7 @@ import pytest
 import lpe_tpu_torch.core.config as tcfg
 from lpe_tpu_torch.convert import spec_from_dict, state_from_numpy
 from lpe_tpu_torch.scenarios.bench_scenes import build_dam_break
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def port_cfg(c):

@@ -12,6 +12,7 @@ import pytest
 
 from test_torch_fluid_slice import (assert_fluid_close, blob_scene,
                                     cross_tick, to_port, xla_resident)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def floor_scene(n=40, universe=1.0, seed=4):

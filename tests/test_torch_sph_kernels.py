@@ -16,6 +16,7 @@ from test_torch_cuda_kernels import (CELL, EPS, FC, GMIN, H, HALF_DT, K,
                                      SWEEP, TX, V, W, WP, _cn, _make_st,
                                      _raster, _rigids, assert_st_close,
                                      assert_sweep_close)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 def _tile_bounds(occ):
     return jnp.asarray(occ.sum(axis=1).reshape(occ.shape[0], NT, TX)
