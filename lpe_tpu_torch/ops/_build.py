@@ -22,8 +22,9 @@ import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("common.cuh", "migrate.cu", "pair_sweep.cu", "coupling9.cu",
-           "narrowphase.cu")
+SOURCES = ("common.cuh", "sph_pair.cuh", "couple.cuh", "migrate.cu",
+           "pair_sweep.cu", "coupling9.cu", "narrowphase.cu", "density.cu",
+           "force.cu", "coupling.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lpe_tpu_torch"
 # --fmad=false: no contraction of a*b+c into one rounding, so the kernels
 # round like the plain PyTorch ops they are held against. No fast math:
@@ -41,6 +42,8 @@ class MigrateParams(ctypes.Structure):
 
 
 class SweepParams(ctypes.Structure):
+    # also the params of the split density and force kernels, which read
+    # the pressure as a plane and ignore stiffness and rest_density
     _fields_ = [("rows", _i), ("K", _i), ("W", _i), ("h", _f), ("h2", _f),
                 ("poly6", _f), ("spiky", _f), ("visc_lap", _f),
                 ("viscosity", _f), ("min_d2", _f), ("min_rho", _f),
@@ -100,6 +103,9 @@ _ENTRIES = {   # name -> (number of tensor arguments, params type)
     "lpe_pair_sweep": (4, SweepParams),
     "lpe_coupling9": (10, CoupleParams),
     "lpe_narrowphase": (16, NarrowParams),
+    "lpe_density": (2, SweepParams),
+    "lpe_force": (3, SweepParams),
+    "lpe_coupling": (7, CoupleParams),
 }
 _lib = None
 build_log = ""           # nvcc's report (-Xptxas -v) of this process's build

@@ -1,7 +1,8 @@
-"""The three kernels of the grid-resident SPH sub-step, with their plain
-PyTorch versions.
+"""The kernels of the SPH sub-step, with their plain PyTorch versions: the
+stacked chain (``migrate``, ``pair_sweep``, ``coupling9``) and the split
+kernels (``density``, ``force``, ``coupling``).
 
-Each public op (``migrate``, ``pair_sweep``, ``coupling9``) launches a
+Each public op launches a
 hand-written CUDA kernel (``csrc/*.cu``, built by ``_build.py``) for CUDA
 tensors and runs its plain PyTorch version (``*_plain`` below) for CPU
 tensors; any other device raises. There is no fallback: a CUDA input that
@@ -15,6 +16,13 @@ any ``cols >= nx + 2`` padded columns (columns past nx+1 are empty):
 
 - ``ST`` (sub-step input): x, y, vx, vy, ax, ay, m, id, occ
 - ``M9`` (migrated):        x1, y1, vx, vy, m, occ, hx, hy, id
+- ``D4`` (density input):   x, y, m, occ        (``pallas_sph.py:94``)
+- ``D8`` (force input):     x, y, vx, vy, m, rho, p, occ        (``:142``)
+- ``D10`` (coupling input): x, y, vx1, vy1, rho, p, m, occ, ax, ay (``:567``)
+
+The JAX package's per-(row, tile) occupancy tables (``rm2``, ``cpl2``) are
+scalar-prefetch devices of the TPU: the ops here take no ``rm2`` and a
+per-column ``cpl``.
 
 The rigid candidate tables of the coupling (``fld`` and ``big``) use the
 ``_RW_*`` parameter layout of ``lpe_tpu/ops/pallas_sph.py:248-257``.
@@ -27,6 +35,9 @@ from ..core.numerics import sqrt, true_div
 
 (ST_X, ST_Y, ST_VX, ST_VY, ST_AX, ST_AY, ST_M, ST_ID, ST_OCC) = range(9)
 (M9_X, M9_Y, M9_VX, M9_VY, M9_M, M9_OCC, M9_HX, M9_HY, M9_ID) = range(9)
+(D8_X, D8_Y, D8_VX, D8_VY, D8_M, D8_RHO, D8_P, D8_OCC) = range(8)
+(D10_X, D10_Y, D10_VX, D10_VY, D10_RHO, D10_P, D10_M, D10_OCC, D10_AX,
+ D10_AY) = range(10)
 (RW_PX, RW_PY, RW_VX, RW_VY, RW_OM, RW_M, RW_I, RW_RAD, RW_CIR,
  RW_MINX, RW_MINY, RW_MAXX, RW_MAXY) = range(13)
 RW_V0 = 13
@@ -161,42 +172,65 @@ def _offset_sum(v):
     return acc
 
 
-def pair_sweep_plain(M9, *, h, poly6, spiky, visc_lap, viscosity, min_d2,
-                     min_rho, stiffness, rest_density):
-    """Poly6 density over the 3x3 cells (self term included), EOS
-    ``p = max(k*(rho - rho0), 0)``, then the symmetric spiky pressure
-    force and the viscosity-Laplacian force on the pre-kick velocities
-    (M9 planes 2-3), with the masks of ``lpe_tpu`` force_core
-    (sph.py:545-599). Returns (rho, fx, fy), each [ny, K, cols] over the
-    interior rows; empty slots hold 0. Works on the list of occupied slots
-    (``nonzero``: a host sync on a GPU, where the kernel runs instead)."""
-    rows, F, K, W = M9.shape
-    ny = rows - 2
+class _Pairs:
+    """The pairs of the occupied interior slots of planes x, y, occ
+    [rows, K, W] with the slots of their 3x3 cells: ``idx`` [N] flat slot
+    indices, ``nidx`` [N, 9, K] their neighbour slots in (dy, dx, slot)
+    order, the separations and the mask of occupied neighbours. Works on
+    the list of occupied slots (``nonzero``: a host sync on a GPU, where
+    the kernels run instead)."""
+
+    def __init__(self, x, y, occ):
+        rows, K, W = occ.shape
+        self.shape = (rows, K, W)
+        self.idx, r, self.k, c = _occupied(occ)
+        self.nidx, inside = _neighbours(r, c, K, W)
+        fx, fy = x.reshape(-1), y.reshape(-1)
+        self.ddx = fx[self.idx][:, None, None] - fx[self.nidx]
+        self.ddy = fy[self.idx][:, None, None] - fy[self.nidx]
+        self.r2 = self.ddx * self.ddx + self.ddy * self.ddy
+        self.nocc = (occ.reshape(-1)[self.nidx] > 0) & inside
+
+    def centre(self, v):
+        return v.reshape(-1)[self.idx][:, None, None]     # [N, 1, 1]
+
+    def neighbour(self, v):
+        return v.reshape(-1)[self.nidx]                   # [N, 9, K]
+
+    def dense(self, v):
+        """[N] values of the occupied slots -> a flat [rows*K*W] plane,
+        0 in empty slots."""
+        rows, K, W = self.shape
+        out = torch.zeros(rows * K * W, dtype=v.dtype, device=v.device)
+        return out.scatter_(0, self.idx, v)
+
+
+def _density_pairs(pairs, m, h, poly6):
+    """Flat [rows*K*W] poly6 density over ``pairs``, self term included."""
     h2 = h * h
-    planes = M9.transpose(0, 1).reshape(F, -1)
-    idx, r, k, c = _occupied(M9[:, M9_OCC])
-    nidx, inside = _neighbours(r, c, K, W)
-    pv = lambda f: planes[f][idx][:, None, None]          # [N, 1, 1]
-    nv = lambda f: planes[f][nidx]                        # [N, 9, K]
-    zero = torch.zeros((), dtype=M9.dtype, device=M9.device)
-    ddx = pv(M9_X) - nv(M9_X)
-    ddy = pv(M9_Y) - nv(M9_Y)
-    r2 = ddx * ddx + ddy * ddy
-    nocc = (nv(M9_OCC) > 0) & inside
-    nm = nv(M9_M)
-    d = h2 - r2
-    w = torch.where(nocc & (r2 < h2), poly6 * (d * d * d), zero)
-    rho_n = _offset_sum(nm * w)
-    rho_full = torch.zeros(rows * K * W, dtype=M9.dtype, device=M9.device)
-    rho_full.scatter_(0, idx, rho_n)
-    p_full = torch.clamp(stiffness * (rho_full - rest_density), min=0.0)
-    crho = rho_full[idx][:, None, None]
-    cterm = p_full[idx][:, None, None] / torch.clamp(crho * crho, min=1e-30)
-    nrho, np_ = rho_full[nidx], p_full[nidx]
-    ok = nocc & (r2 >= min_d2) & (r2 < h2) & (nrho >= min_rho) \
+    zero = torch.zeros((), dtype=m.dtype, device=m.device)
+    d = h2 - pairs.r2
+    w = torch.where(pairs.nocc & (pairs.r2 < h2), poly6 * (d * d * d), zero)
+    return pairs.dense(_offset_sum(pairs.neighbour(m) * w))
+
+
+def _force_pairs(pairs, vx, vy, m, rho_full, p_full, *, h, spiky, visc_lap,
+                 viscosity, min_d2, min_rho):
+    """Flat [rows*K*W] fx, fy over ``pairs`` from the flat density and
+    pressure planes, with the masks of ``lpe_tpu`` force_core
+    (sph.py:545-599)."""
+    zero = torch.zeros((), dtype=m.dtype, device=m.device)
+    K = pairs.shape[1]
+    r2, ddx, ddy = pairs.r2, pairs.ddx, pairs.ddy
+    nm = pairs.neighbour(m)
+    crho = pairs.centre(rho_full)
+    cterm = pairs.centre(p_full) / torch.clamp(crho * crho, min=1e-30)
+    nrho, np_ = pairs.neighbour(rho_full), pairs.neighbour(p_full)
+    ok = pairs.nocc & (r2 >= min_d2) & (r2 < h * h) & (nrho >= min_rho) \
         & (crho >= min_rho)
     self_pair = torch.zeros_like(ok)
-    self_pair[:, 4] = torch.arange(K, device=M9.device)[None, :] == k[:, None]
+    self_pair[:, 4] = torch.arange(K, device=m.device)[None, :] \
+        == pairs.k[:, None]
     ok = ok & ~self_pair
     rr = sqrt(torch.clamp(r2, min=1e-30))
     term = cterm + np_ / torch.clamp(nrho * nrho, min=1e-30)
@@ -206,16 +240,56 @@ def pair_sweep_plain(M9, *, h, poly6, spiky, visc_lap, viscosity, min_d2,
     gx = f_press * ddx / rr
     gy = f_press * ddy / rr
     f_visc = viscosity * nm * (visc_lap * hr / torch.clamp(nrho, min=1e-30))
-    gx = gx - f_visc * (pv(M9_VX) - nv(M9_VX))
-    gy = gy - f_visc * (pv(M9_VY) - nv(M9_VY))
-    fx_n = _offset_sum(torch.where(ok, gx, zero))
-    fy_n = _offset_sum(torch.where(ok, gy, zero))
+    gx = gx - f_visc * (pairs.centre(vx) - pairs.neighbour(vx))
+    gy = gy - f_visc * (pairs.centre(vy) - pairs.neighbour(vy))
+    return (pairs.dense(_offset_sum(torch.where(ok, gx, zero))),
+            pairs.dense(_offset_sum(torch.where(ok, gy, zero))))
 
-    def dense(v):
-        out = torch.zeros(rows * K * W, dtype=M9.dtype, device=M9.device)
-        return out.scatter_(0, idx, v).view(rows, K, W)[1:-1]
 
-    return rho_full.view(rows, K, W)[1:-1], dense(fx_n), dense(fy_n)
+def pair_sweep_plain(M9, *, h, poly6, spiky, visc_lap, viscosity, min_d2,
+                     min_rho, stiffness, rest_density):
+    """Poly6 density over the 3x3 cells (self term included), EOS
+    ``p = max(k*(rho - rho0), 0)``, then the symmetric spiky pressure
+    force and the viscosity-Laplacian force on the pre-kick velocities
+    (M9 planes 2-3). Returns (rho, fx, fy), each [ny, K, cols] over the
+    interior rows; empty slots hold 0."""
+    x, y, vx, vy, m, occ = M9.unbind(1)[:6]
+    pairs = _Pairs(x, y, occ)
+    rho_full = _density_pairs(pairs, m, h, poly6)
+    p_full = torch.clamp(stiffness * (rho_full - rest_density), min=0.0)
+    fx, fy = _force_pairs(pairs, vx, vy, m, rho_full, p_full, h=h, spiky=spiky,
+                          visc_lap=visc_lap, viscosity=viscosity,
+                          min_d2=min_d2, min_rho=min_rho)
+    return tuple(v.view(occ.shape)[1:-1] for v in (rho_full, fx, fy))
+
+
+# ---------------------------------------------------------------------------
+# density, force: the split pair passes (make_density, make_force)
+# ---------------------------------------------------------------------------
+
+def density_plain(D4, *, h, poly6):
+    """Poly6 density over the 3x3 cells of D4 [rows, 4(x, y, m, occ), K,
+    cols], self term included (``lpe_tpu/ops/pallas_sph.py``
+    _density_kernel). Returns rho [ny, K, cols] over the interior rows;
+    empty slots hold 0."""
+    x, y, m, occ = D4.unbind(1)
+    rho = _density_pairs(_Pairs(x, y, occ), m, h, poly6)
+    return rho.view(occ.shape)[1:-1]
+
+
+def force_plain(D8, *, h, spiky, visc_lap, viscosity, min_d2, min_rho):
+    """Symmetric spiky pressure force and viscosity-Laplacian force over
+    the 3x3 cells of D8 [rows, 8(x, y, vx, vy, m, rho, p, occ), K, cols]
+    (``lpe_tpu/ops/pallas_sph.py`` _force_kernel): the density and the
+    pressure are inputs, the self pair is excluded, and a pair counts when
+    min_d2 <= r^2 < h^2 and both densities reach min_rho. Returns (fx, fy),
+    each [ny, K, cols] over the interior rows; empty slots hold 0."""
+    x, y, vx, vy, m, rho, p, occ = D8.unbind(1)
+    fx, fy = _force_pairs(_Pairs(x, y, occ), vx, vy, m, rho.reshape(-1),
+                          p.reshape(-1), h=h, spiky=spiky,
+                          visc_lap=visc_lap, viscosity=viscosity,
+                          min_d2=min_d2, min_rho=min_rho)
+    return tuple(v.view(occ.shape)[1:-1] for v in (fx, fy))
 
 
 # ---------------------------------------------------------------------------
@@ -409,32 +483,30 @@ def _couple_fin(cn, acc, px, py, vx1, vy1, m, ax, ay):
             where(fix, vy1 - valong * cdy, vy1), axo, ayo)
 
 
-def coupling9_plain(cpl, fld, big, M9, rho, fx, fy, *, cn):
-    """Second kick (``v = h + half_dt*f``) with EOS inline, then coupling
-    of every particle against the <= S rigids rasterized to its cell
-    (``fld`` [rows, S, Wp, cols]) and the NBIG big solids (``big``
-    [NBIG+1, Wp], last row zero). Cells with ``cpl == 0`` ([rows, cols]
-    int32) are copied through (with the floor clamp); apron rows are zero.
+def _couple_planes(cpl, fld, big, cn, x1, y1, vx1, vy1, rho, p, m, occ, ax,
+                   ay):
+    """The coupling of ``lpe_tpu/ops/pallas_sph.py`` _couple_rows on
+    particle planes [rows, K, cols]: every occupied slot of a cell with
+    ``cpl > 0`` against the <= S rigids rasterized to its cell (``fld``
+    [rows, S, Wp, cols]) and the NBIG big solids (``big`` [NBIG+1, Wp],
+    last row zero). Every other slot is copied through, with the floor
+    clamp on its position.
 
-    Returns (ST, PL, bigp): the next sub-step's stack, the per-(row, slot,
-    column) force partials [rows, 3S, cols] (fx, fy, tq of slot s at
-    3s..3s+2, summed over the K slots of the column), and the big-solid
-    sums per (row, block of BIG_BLOCK_COLS columns) [rows, NB, 3*NBIG]."""
-    rows, F, K, W = M9.shape
+    Returns the six new planes (x, y, vx, vy, ax, ay; apron rows zero),
+    the per-(row, slot, column) force partials PL [rows, 3S, cols] (fx, fy,
+    tq of slot s at 3s..3s+2, summed over the K slots of the column), and
+    the big-solid sums per (row, block of BIG_BLOCK_COLS columns)
+    [rows, NB, 3*NBIG]."""
+    rows, K, W = x1.shape
     S, Wp = fld.shape[1], fld.shape[2]
     NBIG = big.shape[0] - 1
     C = S + NBIG
-    dev, dt = M9.device, M9.dtype
-    x1, y1, vx, vy, m, occ, hx, hy, pid = M9.unbind(1)
-    pad_r = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
-    fxp, fyp, rhop = pad_r(fx), pad_r(fy), pad_r(rho)
-    vx1 = hx + cn["half_dt"] * fxp
-    vy1 = hy + cn["half_dt"] * fyp
+    dev, dt = x1.device, x1.dtype
     # every slot first gets the copy-through (what coupling with no
     # candidate in reach also gives), then coupled particles overwrite it
     off = torch.full((), cn["boundary_offset"], dtype=dt, device=dev)
     planes = [torch.where(x1 < 0.0, off, x1), torch.where(y1 < 0.0, off, y1),
-              vx1, vy1, fxp, fyp, m, pid, occ]
+              vx1, vy1, ax, ay]
     planes = [v.reshape(-1).clone() for v in planes]
 
     # the coupled particles: occupied slots of cells with cpl > 0
@@ -444,10 +516,7 @@ def coupling9_plain(cpl, fld, big, M9, rho, fx, fy, *, cn):
     r, c = idx // (K * W), idx % W
     pv = lambda v: v.reshape(-1)[idx][:, None]           # [N, 1]
     px, py, pvx1, pvy1, pm = pv(x1), pv(y1), pv(vx1), pv(vy1), pv(m)
-    prho = pv(rhop)
-    pe = torch.clamp(cn["stiffness"] * (prho - cn["rest_density"]),
-                     min=0.0)
-    hp = hoist_particle_terms(cn, py, prho, pe, pm)
+    hp = hoist_particle_terms(cn, py, pv(rho), pv(p), pm)
     # candidates: the S slots rasterized to the particle's cell, then the
     # NBIG big solids
     prm = torch.cat([fld.permute(0, 3, 1, 2)[r, c],     # [N, S, Wp]
@@ -463,12 +532,13 @@ def coupling9_plain(cpl, fld, big, M9, rho, fx, fy, *, cn):
                acc[3] + cfy[:, j]]
     acc += [inside.any(1), act.any(1)]
     outs = _couple_fin(cn, acc, px[:, 0], py[:, 0], pvx1[:, 0], pvy1[:, 0],
-                       pm[:, 0], pv(fxp)[:, 0], pv(fyp)[:, 0])
+                       pm[:, 0], pv(ax)[:, 0], pv(ay)[:, 0])
     for f, v in enumerate(outs):                # x, y, vx, vy, ax, ay
         planes[f].scatter_(0, idx, v)
-    ST = torch.stack([v.view(rows, K, W) for v in planes], 1)
-    ST[0] = 0.0
-    ST[-1] = 0.0
+    planes = [v.view(rows, K, W) for v in planes]
+    for v in planes:
+        v[0] = 0.0
+        v[-1] = 0.0
 
     # force partials: sums over the K slots of a column (per slot s), and
     # over the BIG_BLOCK_COLS columns of a block (per big solid)
@@ -485,7 +555,49 @@ def coupling9_plain(cpl, fld, big, M9, rho, fx, fy, *, cn):
     bigp.view(-1).index_add_(
         0, (blk[:, None] + torch.arange(NBIG * 3, device=dev)).reshape(-1),
         parts[:, S:].reshape(-1))
-    return ST, PL.view(rows, 3 * S, W), bigp
+    return planes, PL.view(rows, 3 * S, W), bigp
+
+
+def coupling9_plain(cpl, fld, big, M9, rho, fx, fy, *, cn):
+    """Second kick (``v = h + half_dt*f``) with EOS inline, then the
+    coupling of ``_couple_planes``. Cells with ``cpl == 0`` ([rows, cols]
+    int32) are copied through (with the floor clamp); apron rows are zero.
+
+    Returns (ST, PL, bigp): the next sub-step's stack and the force
+    partials of ``_couple_planes``."""
+    x1, y1, vx, vy, m, occ, hx, hy, pid = M9.unbind(1)
+    pad_r = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
+    fxp, fyp, rhop = pad_r(fx), pad_r(fy), pad_r(rho)
+    vx1 = hx + cn["half_dt"] * fxp
+    vy1 = hy + cn["half_dt"] * fyp
+    pe = torch.clamp(cn["stiffness"] * (rhop - cn["rest_density"]), min=0.0)
+    planes, PL, bigp = _couple_planes(cpl, fld, big, cn, x1, y1, vx1, vy1,
+                                      rhop, pe, m, occ, fxp, fyp)
+    ST = torch.stack(planes + [m, pid, occ], 1)
+    ST[0] = 0.0
+    ST[-1] = 0.0
+    return ST, PL, bigp
+
+
+# ---------------------------------------------------------------------------
+# coupling: the same coupling on unstacked planes (make_coupling)
+# ---------------------------------------------------------------------------
+
+def coupling_plain(cpl, fld, big, D10, *, cn):
+    """Two-way rigid coupling of D10 [rows, 10(x, y, vx1, vy1, rho, p, m,
+    occ, ax, ay), K, cols] (``lpe_tpu/ops/pallas_sph.py`` _coupling_kernel):
+    the velocity after the second kick, the density, the pressure and the
+    pair acceleration are inputs. Cells with ``cpl == 0`` ([rows, cols]
+    int32) are copied through; a position below 0 becomes the boundary
+    offset in every slot (``lpe_tpu`` applies this clamp to the kernel's
+    output, sph.py:1060-1062); apron rows are zero.
+
+    Returns (x, y, vx, vy, ax, ay, PL, bigp): six planes [rows, K, cols]
+    and the force partials of ``_couple_planes``."""
+    x, y, vx1, vy1, rho, p, m, occ, ax, ay = D10.unbind(1)
+    planes, PL, bigp = _couple_planes(cpl, fld, big, cn, x, y, vx1, vy1,
+                                      rho, p, m, occ, ax, ay)
+    return (*planes, PL, bigp)
 
 
 # ---------------------------------------------------------------------------
@@ -504,9 +616,9 @@ def _check(name, t, shape, dtype=torch.float32):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _grid_shape(M, what):
-    if M.dim() != 4 or M.shape[1] != 9:
-        raise ValueError(f"{what}: expected [rows, 9, K, cols], "
+def _grid_shape(M, what, F=9):
+    if M.dim() != 4 or M.shape[1] != F:
+        raise ValueError(f"{what}: expected [rows, {F}, K, cols], "
                          f"got {tuple(M.shape)}")
     rows, _, K, W = M.shape
     if not (1 <= K <= MAX_K) or rows < 4:
@@ -543,39 +655,83 @@ def _pair_sweep_cuda(M9, *, h, poly6, spiky, visc_lap, viscosity, min_d2,
     return rho, fx, fy
 
 
-def _coupling9_cuda(cpl, fld, big, M9, rho, fx, fy, *, cn):
+def _density_cuda(D4, *, h, poly6):
     from . import _build
-    rows, K, W = _grid_shape(M9, "coupling9")
-    ny = rows - 2
+    rows, K, W = _grid_shape(D4, "density", 4)
+    _check("density D4", D4, (rows, 4, K, W))
+    rho = torch.empty((rows - 2, K, W), dtype=D4.dtype, device=D4.device)
+    P = _build.SweepParams(rows, K, W, h, h * h, poly6, 0.0, 0.0, 0.0, 0.0,
+                           0.0, 0.0, 0.0)
+    _build.call("lpe_density", D4, rho, P)
+    return rho
+
+
+def _force_cuda(D8, *, h, spiky, visc_lap, viscosity, min_d2, min_rho):
+    from . import _build
+    rows, K, W = _grid_shape(D8, "force", 8)
+    _check("force D8", D8, (rows, 8, K, W))
+    fx = torch.empty((rows - 2, K, W), dtype=D8.dtype, device=D8.device)
+    fy = torch.empty_like(fx)
+    P = _build.SweepParams(rows, K, W, h, h * h, 0.0, spiky, visc_lap,
+                           viscosity, min_d2, min_rho, 0.0, 0.0)
+    _build.call("lpe_force", D8, fx, fy, P)
+    return fx, fy
+
+
+def _couple_args(what, cpl, fld, big, M, F, cn):
+    """Check the coupling arguments shared by coupling9 and coupling;
+    returns (rows, K, W, S, NBIG, PL, bigp) with the partial outputs
+    allocated."""
+    rows, K, W = _grid_shape(M, what, F)
     if fld.dim() != 4 or big.dim() != 2:
-        raise ValueError("coupling9: fld must be [rows, S, Wp, cols] and "
+        raise ValueError(f"{what}: fld must be [rows, S, Wp, cols] and "
                          "big [NBIG+1, Wp]")
     S, Wp = fld.shape[1], fld.shape[2]
     NBIG = big.shape[0] - 1
     if S < 1 or Wp != rig_width(cn["V"]) or big.shape[1] != Wp:
-        raise ValueError(f"coupling9: candidate width {Wp} != "
+        raise ValueError(f"{what}: candidate width {Wp} != "
                          f"rig_width({cn['V']})")
-    _check("coupling9 M9", M9, (rows, 9, K, W))
-    _check("coupling9 cpl", cpl, (rows, W), torch.int32)
-    _check("coupling9 fld", fld, (rows, S, Wp, W))
-    _check("coupling9 big", big, (NBIG + 1, Wp))
-    for name, t in (("rho", rho), ("fx", fx), ("fy", fy)):
-        _check(f"coupling9 {name}", t, (ny, K, W))
+    _check(f"{what} particles", M, (rows, F, K, W))
+    _check(f"{what} cpl", cpl, (rows, W), torch.int32)
+    _check(f"{what} fld", fld, (rows, S, Wp, W))
+    _check(f"{what} big", big, (NBIG + 1, Wp))
     NB = -(-W // BIG_BLOCK_COLS)
+    PL = torch.empty((rows, 3 * S, W), dtype=M.dtype, device=M.device)
+    bigp = torch.empty((rows, NB, 3 * max(NBIG, 1)), dtype=M.dtype,
+                       device=M.device)
+    return rows, K, W, S, NBIG, PL, bigp
+
+
+def _coupling9_cuda(cpl, fld, big, M9, rho, fx, fy, *, cn):
+    from . import _build
+    rows, K, W, S, NBIG, PL, bigp = _couple_args("coupling9", cpl, fld, big,
+                                                 M9, 9, cn)
+    for name, t in (("rho", rho), ("fx", fx), ("fy", fy)):
+        _check(f"coupling9 {name}", t, (rows - 2, K, W))
     ST = torch.empty_like(M9)
-    PL = torch.empty((rows, 3 * S, W), dtype=M9.dtype, device=M9.device)
-    bigp = torch.empty((rows, NB, 3 * max(NBIG, 1)), dtype=M9.dtype,
-                       device=M9.device)
     P = _build.couple_params(rows, K, W, S, NBIG, cn)
     _build.call("lpe_coupling9", cpl, fld, big, M9, rho, fx, fy, ST, PL,
                 bigp, P)
     return ST, PL, bigp[:, :, :3 * NBIG]
 
 
+def _coupling_cuda(cpl, fld, big, D10, *, cn):
+    from . import _build
+    rows, K, W, S, NBIG, PL, bigp = _couple_args("coupling", cpl, fld, big,
+                                                 D10, 10, cn)
+    out = torch.empty((6, rows, K, W), dtype=D10.dtype, device=D10.device)
+    P = _build.couple_params(rows, K, W, S, NBIG, cn)
+    _build.call("lpe_coupling", cpl, fld, big, D10, out, PL, bigp, P)
+    return (*out.unbind(0), PL, bigp[:, :, :3 * NBIG])
+
+
 migrate = KernelOp("migrate", migrate_plain, _migrate_cuda)
 pair_sweep = KernelOp("pair_sweep", pair_sweep_plain, _pair_sweep_cuda)
 coupling9 = KernelOp("coupling9", coupling9_plain, _coupling9_cuda)
-OPS = (migrate, pair_sweep, coupling9)
+density = KernelOp("density", density_plain, _density_cuda)
+force = KernelOp("force", force_plain, _force_cuda)
+coupling = KernelOp("coupling", coupling_plain, _coupling_cuda)
+OPS = (migrate, pair_sweep, coupling9, density, force, coupling)
 
 
 def reset_counters():

@@ -5,7 +5,10 @@
 A block is 10 ticks: one ``build_run_fn(ticks=10)`` call for DAM_BREAK
 100k (the grid stays resident across the block) and for RIGID_STACKS 10k
 (the bench's rigid config), ten ``build_tick_fn`` calls for SIMPLE_FLUID.
-For each scene it prints
+DAM_BREAK 100k runs three times: in its default configuration (resident,
+the stacked kernel chain), with ``pair_backend="pallas"`` (resident, the
+split density, force and coupling kernels) and with ``residency="off"``,
+``pair_backend="pallas"`` (the per-tick scatter step). For each it prints
 
 - ticks/s of 3 timed runs of 5 blocks each (host clock around
   synchronized blocks, after one warm-up block);
@@ -25,6 +28,7 @@ The card's name and power limit come first, as ``nvidia-smi`` gives them.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import subprocess
 import time
 
@@ -35,9 +39,18 @@ DAM_N = 100_000
 RIGID_N = 10_000
 BLOCKS, RUNS, TOP = 5, 3, 8
 PORT_KERNELS = ("migrate_kernel", "density_kernel", "force_kernel",
-                "coupling9_kernel", "narrowphase_kernel")
+                "coupling9_kernel", "split_density_kernel",
+                "split_force_kernel", "coupling_kernel", "narrowphase_kernel")
+DAM_FLUID = {   # scene name -> FluidConfig fields of that dam configuration
+    "dam": {},
+    "dam_split": dict(pair_backend="pallas"),
+    "dam_scatter": dict(residency="off", pair_backend="pallas"),
+}
 RIGID_RANGES = ("rigid", "rigid.rows", "rigid.rebuild", "rigid.narrowphase")
-LABELS = {"dam": f"DAM_BREAK {DAM_N}", "simple_fluid": "SIMPLE_FLUID",
+LABELS = {"dam": f"DAM_BREAK {DAM_N}",
+          "dam_split": f"DAM_BREAK {DAM_N} split kernels",
+          "dam_scatter": f"DAM_BREAK {DAM_N} scatter + split pair",
+          "simple_fluid": "SIMPLE_FLUID",
           "rigid": f"RIGID_STACKS {RIGID_N}"}
 
 
@@ -46,9 +59,13 @@ def _scene(name, device):
     from .scenarios import create_scenario
     from .scenarios.bench_scenes import build_dam_break, build_rigid_stacks
     from .systems import build_run_fn, build_tick_fn
-    if name in ("dam", "rigid"):
-        sc = (build_dam_break(DAM_N, device=device) if name == "dam" else
-              build_rigid_stacks(RIGID_N, device=device))
+    if name in DAM_FLUID:
+        sc = build_dam_break(DAM_N, device=device)
+        cfg = sc.cfg.replace(fluid=dataclasses.replace(sc.cfg.fluid,
+                                                       **DAM_FLUID[name]))
+        return sc, build_run_fn(sc.spec, cfg, ticks=BLOCK, device=device)
+    if name == "rigid":
+        sc = build_rigid_stacks(RIGID_N, device=device)
         return sc, build_run_fn(sc.spec, sc.cfg, ticks=BLOCK, device=device)
     sc = create_scenario(SimulationType.SIMPLE_FLUID, seed=0, device=device)
     tick = build_tick_fn(sc.spec, sc.cfg, device=device)
@@ -162,7 +179,7 @@ def main():
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
-    for name in ("dam", "simple_fluid", "rigid"):
+    for name in (*DAM_FLUID, "simple_fluid", "rigid"):
         profile_scene(name, dev)
 
 

@@ -1,14 +1,28 @@
-"""SPH fluid system: the grid-resident tick with two-way rigid coupling.
+"""SPH fluid system: the fluid tick with two-way rigid coupling.
 
-The PyTorch counterpart of the resident path of
-``lpe_tpu/systems/fluid/sph.py``. Particle state lives in a dense
-``[ny+2, K, cols]`` cell grid for a whole tick (or a whole block of ticks,
-see ``systems.build_run_fn``): one stable sort + scatter builds it, each of
-the ``num_sub_steps`` sub-steps runs three kernels on a 9-plane state stack
-(``ops/sph_kernels.py``: migrate -> pair sweep -> coupling9, the JAX
-package's stacked chain, ``sph.py:1385-1436``), and one gather writes it
-back in particle order. The same code runs on the CPU and on the GPU: only
-the kernel wrappers branch, on the device of their tensors.
+The PyTorch counterpart of the single-device paths of
+``lpe_tpu/systems/fluid/sph.py``, chosen by ``FluidConfig.residency`` and
+``FluidConfig.pair_backend``:
+
+- resident (``"auto"``, ``"on"``): particle state lives in a dense
+  ``[ny+2, K, cols]`` cell grid for a whole tick (or a whole block of
+  ticks, see ``systems.build_run_fn``): one stable sort + scatter builds
+  it, and one gather writes it back in particle order. With the pair sweep
+  (``pair_backend`` ``"auto"`` or ``"sweep"``) each of the
+  ``num_sub_steps`` sub-steps runs three kernels on a 9-plane state stack
+  (``ops/sph_kernels.py``: migrate -> pair sweep -> coupling9, the JAX
+  package's stacked chain, ``sph.py:1385-1436``). With the split kernels
+  (``"pallas"``) the sub-step carries a dict of planes: migrate ->
+  density -> EOS -> force -> second kick -> coupling
+  (``sph.py:1438-1528``), which is also the per-band engine of the JAX
+  package's multi-device halo path;
+- scatter (``"off"``): every sub-step integrates in particle order,
+  builds a fresh grid, runs the pair pass on it (density + force, or the
+  pair sweep) and couples each particle against every rigid in dense
+  ``[NR, NL]`` PyTorch code (``sph.py:1249-1322``).
+
+The same code runs on the CPU and on the GPU: only the kernel wrappers
+branch, on the device of their tensors.
 
 Kept from the JAX package: the coefficients, the first-K-per-cell drop
 contract, the (dy, dx, slot) migration order and walk clamp, the S-slot
@@ -18,9 +32,10 @@ differ from the JAX package's, and pair sums reassociate), plain gathers
 in place of one-hot-matmul permutes, and per-column instead of per-128-
 column-tile coupling masks.
 
-Outside this slice (raise ``NotImplementedError``): the per-tick scatter
-path (``residency="off"``), mixed per-particle h, the split
-``pair_backend="pallas"`` kernels, and the multi-device mesh.
+Not ported yet (raise ``NotImplementedError``): mixed per-particle h and
+the multi-device mesh. ``pair_backend="xla"`` is a ``ValueError``: the
+kernels' plain PyTorch versions, taken for CPU tensors, are the port's
+counterpart of the XLA pair passes.
 """
 from __future__ import annotations
 
@@ -111,9 +126,11 @@ def coupling_dims(spec, cfg):
 
 def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                       device, mesh=None):
-    """The grid-resident fluid step, with its cross-tick hooks attached as
-    attributes (``grid_build``, ``grid_tick``, ``grid_readback``,
-    ``grid_boundary``, ``grid_gravity``) for ``systems.build_run_fn``."""
+    """The fluid step of ``cfg.fluid.residency`` and ``pair_backend``. The
+    resident step carries its cross-tick hooks as attributes
+    (``grid_build``, ``grid_tick``, ``grid_readback``, ``grid_boundary``,
+    ``grid_gravity``) for ``systems.build_run_fn``; the scatter step
+    (``residency="off"``) has none and runs tick by tick."""
     fc = cfg.fluid
     if mesh is not None:
         raise NotImplementedError(
@@ -123,21 +140,14 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         raise NotImplementedError(
             "mixed per-particle smoothing lengths are not ported yet "
             "(ROADMAP.md Queue 1 item 8)")
-    if fc.residency == "off":
-        raise NotImplementedError(
-            "the per-tick scatter fluid step (residency='off') is not "
-            "ported yet (ROADMAP.md Queue 1 item 8)")
-    if fc.pair_backend == "pallas":
-        raise NotImplementedError(
-            "the split density/force kernels (pair_backend='pallas') are "
-            "not ported yet (ROADMAP.md Queue 1 item 8)")
-    if fc.residency not in ("auto", "on"):
+    if fc.residency not in ("auto", "on", "off"):
         raise ValueError(f"unknown residency {fc.residency!r}")
-    if fc.pair_backend not in ("auto", "sweep"):
+    if fc.pair_backend not in ("auto", "sweep", "pallas"):
         raise ValueError(
-            f"pair_backend {fc.pair_backend!r}: the port has one pair path, "
-            "the pair sweep ('auto' or 'sweep'); its plain PyTorch version "
-            "runs on CPU tensors")
+            f"pair_backend {fc.pair_backend!r}: the port has the pair sweep "
+            "('auto' or 'sweep') and the split density and force kernels "
+            "('pallas'); their plain PyTorch versions run on CPU tensors")
+    use_split = fc.pair_backend == "pallas"
     if fc.grid.cell_size_factor < 1.0:
         raise ValueError("cell_size_factor must be >= 1.0 (3x3 scan needs "
                          "cells at least h wide to cover the r<h support)")
@@ -170,37 +180,51 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     _RES_LIM = 0.45 * cell
     mig_kw = dict(nx=nx, half_dt=half_dt, sub_dt=sub_dt, lim=_RES_LIM,
                   cell=cell, eps=eps, gmin=gmin)
-    sweep_kw = dict(h=h, poly6=POLY6, spiky=SPIKY, visc_lap=VISC,
-                    viscosity=fc.viscosity,
+    density_kw = dict(h=h, poly6=POLY6)
+    force_kw = dict(h=h, spiky=SPIKY, visc_lap=VISC, viscosity=fc.viscosity,
                     min_d2=nm.min_distance_threshold,
-                    min_rho=nm.min_density_threshold,
-                    stiffness=fc.stiffness, rest_density=fc.rest_density)
+                    min_rho=nm.min_density_threshold)
+    sweep_kw = dict(force_kw, poly6=POLY6, stiffness=fc.stiffness,
+                    rest_density=fc.rest_density)
+
+    def _pad_rows(v):
+        """[ny, K, W] interior rows -> [rows, K, W] with zero apron rows."""
+        return torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
 
     def _eos(rho):
         return torch.clamp(fc.stiffness * (rho - fc.rest_density), min=0.0)
 
-    def build_grid(x, y):
-        """Assign every particle an (edge-clamped) cell; the first K of a
-        cell in particle order get its slots (stable sort), the rest are
-        dropped. ``slot_p``: each particle's flat index into the padded
-        ``[rows, K, W]`` grid (PSIZE = dropped)."""
+    def build_grid(x, y, clamp):
+        """Assign every particle a cell: edge-clamped (``clamp``, the
+        resident build, so that none is ever lost from the resident
+        state), or none when it lies off the grid (the scatter build). The
+        first K of a cell in particle order get its slots (stable sort),
+        the rest are dropped. ``slot_p``: each particle's flat index into
+        the padded ``[rows, K, W]`` grid (PSIZE = no slot); ``pvalid``:
+        the particle has a slot."""
         i32 = torch.int32
-        gx = torch.clamp(torch.floor(true_div(x + eps, cell)).to(i32) - gmin,
-                         0, nx - 1)
-        gy = torch.clamp(torch.floor(true_div(y + eps, cell)).to(i32) - gmin,
-                         0, ny - 1)
-        cid = (gy * nx + gx).to(torch.int64)
+        gx = torch.floor(true_div(x + eps, cell)).to(i32) - gmin
+        gy = torch.floor(true_div(y + eps, cell)).to(i32) - gmin
+        if clamp:
+            gx = torch.clamp(gx, 0, nx - 1)
+            gy = torch.clamp(gy, 0, ny - 1)
+            cid = gy * nx + gx
+        else:
+            ok = (gx >= 0) & (gx < nx) & (gy >= 0) & (gy < ny)
+            cid = torch.where(ok, gy * nx + gx,
+                              torch.full_like(gx, nx * ny))
+        cid = cid.to(torch.int64)
         order = torch.argsort(cid, stable=True)
         sc = cid[order]
         rank = torch.arange(NL, device=x.device) - \
             torch.searchsorted(sc, sc)
-        valid = rank < K
+        valid = (sc < nx * ny) & (rank < K)
         row = sc // nx + 1
         col = sc % nx + 1
         slot = torch.where(valid, (row * K + rank) * W + col,
                            torch.full_like(sc, PSIZE))
         slot_p = torch.empty_like(slot).scatter_(0, order, slot)
-        return dict(slot_p=slot_p)
+        return dict(slot_p=slot_p, pvalid=slot_p < PSIZE)
 
     def to_dense(grid, fields: dict):
         """Scatter per-particle fields into padded [rows, K, W] planes."""
@@ -210,6 +234,14 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             flat.scatter_(0, grid["slot_p"], v)
             out[name] = flat[:PSIZE].view(rows, K, W)
         return out
+
+    def from_dense(grid, planes):
+        """Per-particle values of padded [rows, K, W] planes: one gather
+        per plane, 0 for a particle without a slot."""
+        gi = torch.clamp(grid["slot_p"], max=PSIZE - 1)
+        return [torch.where(grid["pvalid"], v.reshape(-1)[gi],
+                            torch.zeros((), dtype=v.dtype, device=v.device))
+                for v in planes]
 
     def _tile_bounds_t(occ):
         """Per-(padded row, column) occupancy count of a [rows, K, W] occ
@@ -427,6 +459,36 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                     Fy.index_add(0, _big_arr, bigF[:, 1]),
                     Tq.index_add(0, _big_arr, bigF[:, 2]))
 
+        def _dense_couple(R, x1, y1, vx1, vy1, rho, pres, mass, ax, ay):
+            """The scatter path's coupling: every particle against every
+            rigid, on dense [NR, NL] tensors (``lpe_tpu`` overlap_info,
+            impulse_solve and position_solve, sph.py:1079-1247, which
+            mirror the kernels' candidate math form for form: here all NR
+            rigids are the candidates of every particle). Returns the
+            particles' (x, y, vx, vy, ax, ay) and the rigids' (Fx, Fy, Tq)
+            of this sub-step; rigid sums run over the particle axis, no
+            atomics.
+
+            Memory: about 40 live [NR, NL] float32 intermediates, 64 MB at
+            the dam's 4 walls x 100k particles, 160 GB at 10k rigids x
+            100k particles: the scatter path is for scenes with few
+            rigids, as in ``lpe_tpu``."""
+            tab = _rig_cols(R)
+            gp = lambda i: tab[:, i, None]                   # [NR, 1]
+            px, py = x1[None, :], y1[None, :]                # [1, NL]
+            in_aabb = (px >= gp(SK.RW_MINX)) & (px <= gp(SK.RW_MAXX)) & \
+                (py >= gp(SK.RW_MINY)) & (py <= gp(SK.RW_MAXY)) & \
+                R["valid"][:, None]
+            hp = SK.hoist_particle_terms(_CN, py, rho[None, :],
+                                         pres[None, :], mass[None, :])
+            inside, cx_, cy_, cfx, cfy, ctq, act = SK._cand_math(
+                _VR, _CN, gp, in_aabb, px, py, vx1[None, :], vy1[None, :],
+                hp)
+            acc = [cx_.sum(0), cy_.sum(0), cfx.sum(0), cfy.sum(0),
+                   inside.any(0), act.any(0)]
+            outs = SK._couple_fin(_CN, acc, x1, y1, vx1, vy1, mass, ax, ay)
+            return outs, (cfx.sum(1), cfy.sum(1), ctq.sum(1))
+
     def _finalize_rigid(state, Fx, Fy, Tq):
         """Rigid velocity write-back, once per tick (fluid.cpp:526-580)."""
         if NR == 0:
@@ -464,7 +526,7 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         x = b.pos[L0:L0 + NL, 0]
         y = b.pos[L0:L0 + NL, 1]
         idf = torch.arange(1, NL + 1, dtype=f32, device=x.device)  # 0=empty
-        grid = build_grid(x, y)
+        grid = build_grid(x, y, clamp=True)
         D0 = to_dense(grid, dict(
             x=x, y=y, vx=b.vel[L0:L0 + NL, 0], vy=b.vel[L0:L0 + NL, 1],
             m=b.mass[L0:L0 + NL], id=idf, occ=torch.ones_like(x)))
@@ -494,14 +556,49 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                 Fx, Fy, Tq = _add_bigF(Fx, Fy, Tq, bigF)
             return dict(ST=ST, RHO=rho, PL=cr["PL"] + pl, Fx=Fx, Fy=Fy,
                         Tq=Tq)
-        pad_r = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
-        fxp, fyp = pad_r(fx), pad_r(fy)
+        fxp, fyp = _pad_rows(fx), _pad_rows(fy)
         vx1 = M9[:, SK.M9_HX] + half_dt * fxp
         vy1 = M9[:, SK.M9_HY] + half_dt * fyp
         ST2 = torch.stack([M9[:, SK.M9_X], M9[:, SK.M9_Y], vx1, vy1, fxp,
                            fyp, M9[:, SK.M9_M], M9[:, SK.M9_ID],
                            M9[:, SK.M9_OCC]], dim=1)
         return dict(cr, ST=ST2, RHO=rho)
+
+    def _substep_split(cr, R, fld, bigtab):
+        """One sub-step on the plane dict ``cr["D"]`` with the split
+        kernels (``lpe_tpu`` _make_res_substep, sph.py:1438-1528): migrate
+        (kick, clamped drift, re-bin: the kernel the stacked chain uses,
+        whose result is the JAX package's XLA ``_migrate``), density, EOS,
+        force, second kick, coupling. The planes keep the previous
+        sub-step's rho and p until the density pass overwrites them."""
+        D = cr["D"]
+        M9 = SK.migrate(torch.stack(
+            [D["x"], D["y"], D["vx"], D["vy"], D["ax"], D["ay"], D["m"],
+             D["id"], D["occ"]], dim=1), **mig_kw)
+        x1, y1, vx, vy, m, occ, hx, hy, pid = M9.unbind(1)
+        rho = _pad_rows(SK.density(torch.stack([x1, y1, m, occ], dim=1),
+                                   **density_kw))
+        pres = _eos(rho)
+        fx, fy = SK.force(torch.stack([x1, y1, vx, vy, m, rho, pres, occ],
+                                      dim=1), **force_kw)
+        ax1, ay1 = _pad_rows(fx), _pad_rows(fy)
+        vx1 = hx + half_dt * ax1
+        vy1 = hy + half_dt * ay1
+        Dn = dict(x=x1, y=y1, vx=vx1, vy=vy1, ax=ax1, ay=ay1, m=m, id=pid,
+                  occ=occ, hx=hx, hy=hy, rho=rho, p=pres)
+        if NR == 0:
+            return dict(cr, D=Dn)
+        cpl = _cpl_mask(_tile_bounds_t(occ), R)
+        x2, y2, vx2, vy2, axf, ayf, pl, bigp = SK.coupling(
+            cpl, fld, bigtab, torch.stack(
+                [x1, y1, vx1, vy1, rho, pres, m, occ, ax1, ay1], dim=1),
+            cn=_CN)
+        Fx, Fy, Tq = cr["Fx"], cr["Fy"], cr["Tq"]
+        if _NBIG:
+            Fx, Fy, Tq = _add_bigF(Fx, Fy, Tq,
+                                   bigp.sum((0, 1)).view(_NBIG, 3))
+        return dict(D=dict(Dn, x=x2, y=y2, vx=vx2, vy=vy2, ax=axf, ay=ayf),
+                    PL=cr["PL"] + pl, Fx=Fx, Fy=Fy, Tq=Tq)
 
     def _grid_tick(state: SimState, D):
         """One fluid tick on the resident grid: sub-steps + the per-tick
@@ -516,19 +613,26 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         zd = torch.zeros_like(D["x"])
         nf = max(NR, 1)
         cr = dict(Fx=zd.new_zeros(nf), Fy=zd.new_zeros(nf),
-                  Tq=zd.new_zeros(nf), RHO=None, ST=_stack(D))
+                  Tq=zd.new_zeros(nf))
+        if use_split:
+            cr["D"] = dict(D, ax=zd, ay=zd)
+        else:
+            cr.update(RHO=None, ST=_stack(D))
         if use_cpl:
             cr["PL"] = zd.new_zeros((rows, 3 * _S, W))
+        substep = _substep_split if use_split else _substep
         for _ in range(fc.num_sub_steps):
-            cr = _substep(cr, R, fld, bigtab)
+            cr = substep(cr, R, fld, bigtab)
         Fx, Fy, Tq = cr["Fx"], cr["Fy"], cr["Tq"]
         if use_cpl:
             Fs = _couple_reduce(cmeta, cr["PL"])
             Fx = Fx + Fs[:, 0]
             Fy = Fy + Fs[:, 1]
             Tq = Tq + Fs[:, 2]
+        if use_split:
+            return _finalize_rigid(state, Fx, Fy, Tq), cr["D"]
         STf = cr["ST"]
-        rho_pad = torch.nn.functional.pad(cr["RHO"], (0, 0, 0, 0, 1, 1))
+        rho_pad = _pad_rows(cr["RHO"])
         D2 = dict(x=STf[:, 0], y=STf[:, 1], vx=STf[:, 2], vy=STf[:, 3],
                   ax=STf[:, 4], ay=STf[:, 5], m=STf[:, 6], id=STf[:, 7],
                   occ=STf[:, 8], hx=zd, hy=zd, rho=rho_pad, p=_eos(rho_pad))
@@ -609,9 +713,68 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         vy = torch.where(D["occ"] > 0, D["vy"] + _g_accel * dt, D["vy"])
         return dict(D, vy=vy)
 
+    def step_scatter(state: SimState) -> SimState:
+        """Per-tick scatter step (``lpe_tpu`` step, sph.py:1249-1322):
+        every sub-step integrates in particle order, builds a fresh grid
+        (a particle off the grid or beyond a cell's K slots gets no slot:
+        it takes the self density ``m*poly6*h^6`` and zero pair force, and
+        integrates ballistically), runs the pair pass on it and couples in
+        dense [NR, NL] code."""
+        b = state.bodies
+        x = b.pos[L0:L0 + NL, 0]
+        y = b.pos[L0:L0 + NL, 1]
+        vx = b.vel[L0:L0 + NL, 0]
+        vy = b.vel[L0:L0 + NL, 1]
+        mass = b.mass[L0:L0 + NL]
+        R = _rigid_proxies(b, NR, spec.max_rigid_verts) if NR > 0 else None
+        ax = ay = torch.zeros_like(x)
+        nf = max(NR, 1)
+        Fx, Fy, Tq = x.new_zeros(nf), x.new_zeros(nf), x.new_zeros(nf)
+        rho, pres = b.density[L0:L0 + NL], b.pressure[L0:L0 + NL]
+        for _ in range(fc.num_sub_steps):
+            # kick-drift (metal:408-423)
+            vhx = vx + half_dt * ax
+            vhy = vy + half_dt * ay
+            x = x + vhx * sub_dt
+            y = y + vhy * sub_dt
+            grid = build_grid(x, y, clamp=False)
+            D = to_dense(grid, dict(x=x, y=y, vx=vx, vy=vy, m=mass,
+                                    occ=torch.ones_like(x)))
+            if use_split:
+                rho_d = _pad_rows(SK.density(torch.stack(
+                    [D["x"], D["y"], D["m"], D["occ"]], dim=1), **density_kw))
+                fx_d, fy_d = SK.force(torch.stack(
+                    [D["x"], D["y"], D["vx"], D["vy"], D["m"], rho_d,
+                     _eos(rho_d), D["occ"]], dim=1), **force_kw)
+            else:
+                # the sweep reads M9 planes 0-5; hx, hy and id are not its
+                # inputs (lpe_tpu's scatter path hands it a 6-plane stack)
+                zd = torch.zeros_like(D["x"])
+                rho_d, fx_d, fy_d = SK.pair_sweep(torch.stack(
+                    [D["x"], D["y"], D["vx"], D["vy"], D["m"], D["occ"], zd,
+                     zd, zd], dim=1), **sweep_kw)
+                rho_d = _pad_rows(rho_d)
+            rho, ax, ay = from_dense(
+                grid, [rho_d, _pad_rows(fx_d), _pad_rows(fy_d)])
+            rho = torch.where(grid["pvalid"], rho,
+                              mass * POLY6 * (h * h) ** 3)
+            pres = _eos(rho)
+            # second kick (metal:428-441)
+            vx = vhx + half_dt * ax
+            vy = vhy + half_dt * ay
+            if NR > 0:
+                (x, y, vx, vy, ax, ay), (dFx, dFy, dTq) = _dense_couple(
+                    R, x, y, vx, vy, rho, pres, mass, ax, ay)
+                Fx, Fy, Tq = Fx + dFx, Fy + dFy, Tq + dTq
+        return _finalize_liquid(_finalize_rigid(state, Fx, Fy, Tq),
+                                x, y, vx, vy, rho, pres)
+
+    if fc.residency == "off":
+        return step_scatter
+
     def step_resident(state: SimState) -> SimState:
-        """Grid-resident tick: one sort/scatter at build, three kernels per
-        sub-step, one gather-back at tick end."""
+        """Grid-resident tick: one sort/scatter at build, the sub-step
+        kernels, one gather-back at tick end."""
         D0 = _grid_build(state)
         state2, D = _grid_tick(state, D0)
         return _grid_readback(state2, D)
@@ -622,11 +785,14 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     step_resident.grid_readback = _grid_readback
     step_resident.grid_boundary = _grid_boundary
     step_resident.grid_gravity = _grid_gravity
-    # the kernels' inputs as the main path builds them (chip_smoke.py
+    # the kernels' inputs as the resident paths build them (chip_smoke.py
     # holds each kernel against its plain version on these)
     step_resident.grid_stack = _stack
+    step_resident.eos = _eos
     step_resident.migrate_consts = mig_kw
     step_resident.sweep_consts = sweep_kw
+    step_resident.density_consts = density_kw
+    step_resident.force_consts = force_kw
     if use_cpl:
         def _coupling_inputs(state, M9):
             R = _rigid_proxies(state.bodies, NR, spec.max_rigid_verts)

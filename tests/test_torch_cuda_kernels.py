@@ -1,12 +1,12 @@
-"""Seeded small-grid inputs for the three SPH sub-step kernels, and the
-test that holds each CUDA kernel against its plain PyTorch version on the
-card. This file imports no jax, so it runs where the kernels run:
+"""Seeded small-grid inputs for the SPH sub-step kernels, and the tests
+that hold each CUDA kernel against its plain PyTorch version on the card.
+This file imports no jax, so it runs where the kernels run:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda
 
-Without a GPU the CUDA test skips with a reason. The plain versions are
-held against the JAX package's Pallas kernels in test_torch_sph_kernels.py,
-on these same inputs."""
+Without a GPU the CUDA tests skip with a reason. The plain versions are
+held against the JAX package's Pallas kernels in test_torch_sph_kernels.py
+and test_torch_split_kernels.py, on these same inputs."""
 import dataclasses
 
 import numpy as np
@@ -214,7 +214,59 @@ def test_cuda_kernels_match_plain():
     assert_st_close(out_k[0], out_p[0])
     for u, v in zip(out_k[1:], out_p[1:]):
         torch.testing.assert_close(u, v, rtol=0, atol=1e-5)
-    assert [op.launches for op in SK.OPS] == [1, 1, 1]
+    assert {op.name: op.launches for op in SK.OPS} == dict(
+        migrate=1, pair_sweep=1, coupling9=1, density=0, force=0, coupling=0)
+
+
+@pytest.mark.cuda
+def test_cuda_split_kernels_match_plain():
+    """density, force and coupling against their plain versions on the
+    card, and density + EOS + force against the pair sweep (the same
+    function by another route)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    pad = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
+    t = torch.from_numpy(_make_st()).cuda()
+    m9 = SK.migrate(t, **MIG)
+    x, y, vx, vy, m, occ, hx, hy, _ = m9.unbind(1)
+    inner = (occ[1:-1] > 0).cpu().numpy()
+    SK.reset_counters()
+    dkw = dict(h=H, poly6=SWEEP["poly6"])
+    fkw = {k: SWEEP[k] for k in ("h", "spiky", "visc_lap", "viscosity",
+                                 "min_d2", "min_rho")}
+    d4 = torch.stack([x, y, m, occ], 1)
+    rho = SK.density(d4, **dkw)
+    rho_p = pad(rho)
+    pres = torch.clamp(FC.stiffness * (rho_p - FC.rest_density), min=0.0)
+    d8 = torch.stack([x, y, vx, vy, m, rho_p, pres, occ], 1)
+    fx, fy = SK.force(d8, **fkw)
+    got = [v.cpu() for v in (rho, fx, fy)]
+    plain = [SK.density_plain(d4, **dkw).cpu()] + \
+        [v.cpu() for v in SK.force_plain(d8, **fkw)]
+    assert_sweep_close(got, plain, inner)
+    assert_sweep_close(got, [v.cpu() for v in SK.pair_sweep(m9, **SWEEP)],
+                       inner)
+    small, wall = _rigids()
+    fld, _ = _raster(small)
+    big = np.concatenate([wall, np.zeros((1, WP), np.float32)])
+    cpl = (occ.sum(1) > 0).to(torch.int32).contiguous()
+    cn = dict(_cn(), V=V, half_dt=HALF_DT, stiffness=FC.stiffness)
+    ax, ay = pad(fx), pad(fy)
+    d10 = torch.stack([x, y, hx + HALF_DT * ax, hy + HALF_DT * ay, rho_p,
+                       pres, m, occ, ax, ay], 1)
+    args = [cpl, torch.from_numpy(fld).cuda(), torch.from_numpy(big).cuda(),
+            d10]
+    out_k = [v.cpu() for v in SK.coupling(*args, cn=cn)]
+    out_p = [v.cpu() for v in SK.coupling_plain(*args, cn=cn)]
+    a_scale = float(torch.stack(out_p[4:6]).abs().max())
+    for f, (u, v) in enumerate(zip(out_k, out_p)):
+        atol = max(1e-5, 1e-6 * a_scale) if f in (4, 5) else 1e-5
+        torch.testing.assert_close(u, v, rtol=0, atol=atol)
+    assert float(out_p[6].abs().max()) > 1e-3
+    assert {op.name: op.launches for op in SK.OPS} == dict(
+        migrate=0, pair_sweep=1, coupling9=0, density=1, force=1, coupling=1)
+    with pytest.raises(ValueError, match="expected"):
+        SK.density(d8, **dkw)
 
 
 def test_fluid_config_tree_is_the_one_tested():

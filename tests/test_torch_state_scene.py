@@ -115,10 +115,9 @@ def test_out_of_slice_configurations_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         create_scenario("GALTON_BOARD", seed=0, device="cpu")
     sc = create_scenario("SIMPLE_FLUID", seed=0, device="cpu")
-    for kw, item in ((dict(residency="off"), "item 8"),
-                     (dict(pair_backend="pallas"), "item 8")):
+    for kw in (dict(pair_backend="xla"), dict(residency="sometimes")):
         cfg = sc.cfg.replace(fluid=dataclasses.replace(sc.cfg.fluid, **kw))
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=next(iter(kw))):
             make_fluid(sc.spec, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         make_fluid(sc.spec, sc.cfg, device="cpu", mesh=object())
