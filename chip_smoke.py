@@ -4,6 +4,10 @@
 Run from the root of a checkout, with one CUDA card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare PARENT_DIR
+
+The second form only times the SPH kernels of two trees on one card (see
+compare()); the phases below are the first.
 
 Phases (any failure raises and exits non-zero, printing no result):
   1. require CUDA; print the card (nvidia-smi name, power limit), torch and
@@ -12,8 +16,19 @@ Phases (any failure raises and exits non-zero, printing no result):
   3. at the DAM_BREAK 100k shapes (the grid of the dam scene 40 ticks into
      its collapse), hold each SPH kernel against its plain PyTorch version
      and time both with CUDA events: the stacked chain (migrate, pair_sweep,
-     coupling9) and the split kernels (density, force, coupling), the split
-     pair also against the pair sweep (the same function by another route);
+     coupling9) and the split kernels (density, force, coupling). Each
+     kernel of the chain against its twin on the card, to the bit: the
+     pair sweep against density + EOS + force, coupling9 against coupling
+     on the same sub-step, on the main path's own inputs (every cell copies
+     through) and with the floor wall moved into the fluid (every occupied
+     cell couples); then NaN planted in x, y, vx, vy and m of every empty
+     slot of M9 must leave rho, fx, fy, PL and bigp bitwise unchanged (and
+     reach ST only where an empty slot's own x, y, m are copied through).
+     coupling9 is timed and bounded on both input sets; the kernels' line
+     carries the main path's. Kernel times are each launch's alone, with
+     L2 flushed before it (cuda_ms), as a tick finds its inputs; the time
+     of back-to-back launches on inputs that may stay in L2 is printed
+     beside it as "warm";
   4. run DAM_BREAK 100k through build_run_fn(ticks=10): the state must be
      finite, the three kernels of the stacked chain must have launched 10
      times a tick, the split kernels not at all, and no plain version run;
@@ -27,10 +42,13 @@ Phases (any failure raises and exits non-zero, printing no result):
      force and coupling launched 10 times a tick, pair_sweep and coupling9
      not at all, no plain call; one tick from the same state agrees with
      the default stacked path (|dpos| <= 1e-4 m, rho rel <= 1e-3, lpe_tpu's
-     resident-vs-scatter tolerances);
+     resident-vs-scatter tolerances), and whether it does to the bit is
+     printed and recorded;
   6b. DAM_BREAK 100k with residency="off", pair_backend="pallas" (the
      per-tick scatter step), 10 ticks: finite, density and force launched
-     10 times a tick, no plain call, two runs bitwise equal;
+     10 times a tick, no plain call, two runs bitwise equal; then one tick
+     of the scatter step with the pair sweep (its default backend) must
+     equal one with density + force to the bit;
   6c. SIMPLE_FLUID with pair_backend="pallas", 120 ticks: the same pooling
      (the S-slot branch of the coupling kernel);
   7. run RIGID_STACKS 10k (the bench's rigid config) through
@@ -46,7 +64,8 @@ Phases (any failure raises and exits non-zero, printing no result):
      grid under RIGID_MAX_DROP rather than at zero;
   8. at the rows of that run's state 40 ticks in (82,944 a tick), hold the
      narrowphase kernel against its plain version and time both;
-  9. print the kernels' JSON line, then the result line.
+  9. print the bitwise twin checks as a JSON line, the kernels' JSON line,
+     then the result line.
 Every kernel's line carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations this run's data needs over the
 67 TFLOP/s fp32 rate (H100 SXM, published peaks).
@@ -85,6 +104,7 @@ KERNEL_INFO = {   # name -> (CUDA source, the Pallas kernel it replaces)
 # H100 SXM published peaks (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+L2_FLUSH_BYTES = 256 << 20     # written between timed calls: 5x the L2
 # bodies beyond a cell's slots at tick 40 (lpe_tpu on the CPU: 0.0232)
 RIGID_MAX_DROP = 0.05
 # operation counts of the work, per unit of this run's data (estimates from
@@ -110,18 +130,39 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
+_flush = []
+
+
+def cuda_ms(fn, reps: int = 20, cold: bool = True) -> float:
+    """Mean ms of ``fn`` on the card by CUDA events, after 3 warm-up calls.
+    ``cold``: each call timed alone, after writing L2_FLUSH_BYTES so that
+    the L2 cache holds none of its inputs, as in a tick, where the kernels
+    before it have moved more than L2 holds; else ``reps`` calls back to
+    back, whose inputs may stay in L2 (50 MB on the H100)."""
     import torch
     for _ in range(3):
         fn()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
+    if not cold:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps
+    if not _flush:
+        _flush.append(torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                                  device="cuda"))
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for t0, t1 in ev:
+        _flush[0].zero_()
+        t0.record()
         fn()
-    t1.record()
+        t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return sum(t0.elapsed_time(t1) for t0, t1 in ev) / reps
 
 
 def max_err(a, b) -> float:
@@ -132,12 +173,70 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two float32 tensors (+0 and -0 differ)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def same_bits_or_nan(a, b) -> bool:
+    """NaN in the same places, bitwise equal elsewhere."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and \
+        same_bits(torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
+
+
+def pair_sweep_bytes(occ, outs) -> int:
+    """Bytes the pair sweep must move on these inputs: the occupancy plane
+    ``occ`` of M9, x, y, vx, vy and m of the live slots only (what an empty
+    slot holds reaches no output: the NaN plant of check_kernels), every
+    output once."""
+    live = int((occ > 0).sum())
+    return nbytes(occ) + 5 * live * occ.element_size() + nbytes(*outs)
+
+
+def coupling9_bytes(cpl, fld, big, M9, outs) -> int:
+    """Bytes coupling9 must move on these inputs: the M9 planes it reads
+    (x, y, m, occ, id, hx, hy: not vx, vy), the sweep's rho, fx, fy, cpl,
+    the candidate rows of the cells that couple (cpl > 0) and the big-solid
+    table only if any cell couples; every output once."""
+    rows, _, K, W = M9.shape
+    plane = K * W * M9.element_size()
+    coupled = int((cpl > 0).sum())
+    per_cell = fld.shape[1] * fld.shape[2] * fld.element_size()
+    return (rows * 7 * plane + 3 * (rows - 2) * plane + nbytes(cpl)
+            + coupled * per_cell + (nbytes(big) if coupled else 0)
+            + nbytes(*outs))
+
+
 def bound(n_bytes, ops):
     """(bound_ms, bound_by): the least time the card could take to move
     ``n_bytes`` or to do ``ops`` fp32 operations, whichever is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def moved_wall(SK, M9, fld, big, V):
+    """The candidate tables (fld, big) with the dam's floor wall (big solid
+    3) moved to the fluid's mean height and widened over its columns, as a
+    big solid and in slot 0 of every cell."""
+    occ = M9[:, SK.M9_OCC] > 0
+    xs, ys = M9[:, SK.M9_X][occ], M9[:, SK.M9_Y][occ]
+    wall = big[3].clone()
+    shift = float(ys.mean()) - float(wall[SK.RW_PY])
+    for i in (SK.RW_PY, SK.RW_MINY, SK.RW_MAXY):
+        wall[i] += shift
+    wall[SK.RW_V0 + 1:SK.RW_V0 + 2 * V:2] += shift       # vertex ys
+    wall[SK.RW_MINX] = float(xs.min()) - 0.1
+    wall[SK.RW_MAXX] = float(xs.max()) + 0.1
+    big2 = big.clone()
+    big2[3] = wall
+    fld2 = fld.clone()
+    fld2[:, 0] = wall[:, None]
+    return fld2, big2
 
 
 def neighbour_pairs(occ):
@@ -151,10 +250,9 @@ def neighbour_pairs(occ):
     return float((n * nb).sum())
 
 
-def check_kernels(dev):
-    """Phase 3: each kernel against its plain version at dam-100k shapes."""
-    import torch
-    from lpe_tpu_torch.ops import sph_kernels as SK
+def dam_sub_step(dev):
+    """DAM_BREAK 100k WARM_BLOCKS blocks in: (scene, fluid system, state,
+    the grid stack ST that a sub-step starts from)."""
     from lpe_tpu_torch.scenarios.bench_scenes import build_dam_break
     from lpe_tpu_torch.systems import build_run_fn
     from lpe_tpu_torch.systems.fluid import make_fluid
@@ -165,14 +263,51 @@ def check_kernels(dev):
     state = sc.state
     for _ in range(WARM_BLOCKS):
         state = run(state)
-    ST = fl.grid_stack(fl.grid_build(state))
+    return sc, fl, state, fl.grid_stack(fl.grid_build(state))
+
+
+def sub_step_inputs(SK, fl, state, ST):
+    """Every SPH kernel's inputs on one sub-step from ``ST``, each fed by
+    the kernel before it: M9 (migrate), the sweep's rho, fx, fy, the split
+    kernels' planes D4 (density), D8 (force) and D10 (coupling: second kick
+    and EOS applied), and two candidate sets: the main path's own (the
+    boundary margin keeps the dam's fluid off its walls, so its cells copy
+    through) and with the floor wall moved into the fluid (moved_wall), so
+    that the candidate math runs on every occupied cell."""
+    import torch
+    ck = fl.couple_consts
+    pad = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
+    M9 = SK.migrate(ST, **fl.migrate_consts)
+    sw = SK.pair_sweep(M9, **fl.sweep_consts)
+    x1, y1, vx0, vy0, m, occ, hx, hy, _ = M9.unbind(1)
+    rp, ax1, ay1 = (pad(v) for v in sw)
+    cpl, fld, big = fl.coupling_inputs(state, M9)
+    live = (occ.sum(1) > 0).to(torch.int32).contiguous()
+    return dict(
+        M9=M9, sw=sw, D4=torch.stack([x1, y1, m, occ], 1),
+        D8=torch.stack([x1, y1, vx0, vy0, m, rp, fl.eos(rp), occ], 1),
+        D10=torch.stack([x1, y1, hx + ck["half_dt"] * ax1,
+                         hy + ck["half_dt"] * ay1, rp, fl.eos(rp), m, occ,
+                         ax1, ay1], 1),
+        cands={"main": (cpl, fld, big),
+               "wall": (live, *moved_wall(SK, M9, fld, big, ck["V"]))})
+
+
+def check_kernels(dev):
+    """Phase 3: each kernel against its plain version at dam-100k shapes."""
+    import torch
+    from lpe_tpu_torch.ops import sph_kernels as SK
+
+    sc, fl, state, ST = dam_sub_step(dev)
     print(f"dam {DAM_N}: grid {tuple(ST.shape)} [rows, planes, K, cols], "
           f"nbig={len(sc.spec.solid_big_idx)}", flush=True)
     rows, _, K, W = ST.shape
     if K != 16 or rows != 275 or len(sc.spec.solid_big_idx) != 4:
         fail(f"unexpected dam-100k shapes rows={rows} K={K}")
     mk, sk, ck = fl.migrate_consts, fl.sweep_consts, fl.couple_consts
-    M9 = SK.migrate(ST, **mk)
+    inp = sub_step_inputs(SK, fl, state, ST)
+    M9, sw, D4, D8, D10 = (inp[k] for k in ("M9", "sw", "D4", "D8", "D10"))
+    cands = inp["cands"]
     M9p = SK.migrate_plain(ST, **mk)
     occ = M9p[:, SK.M9_OCC] > 0
     if not torch.equal(M9[:, SK.M9_OCC], M9p[:, SK.M9_OCC]) or \
@@ -182,7 +317,6 @@ def check_kernels(dev):
     if errs["migrate"] > 1e-6:
         fail(f"migrate: max abs err {errs['migrate']}")
 
-    sw = SK.pair_sweep(M9, **sk)
     swp = SK.pair_sweep_plain(M9, **sk)
     o = occ[1:-1]
     rho_rel = float(((sw[0] - swp[0]).abs() / swp[0].abs().clamp(min=1e-30))
@@ -217,16 +351,11 @@ def check_kernels(dev):
     if force_misses(bad[1:]) == 0:
         fail("pair_sweep: the force check missed a planted fault")
 
-    # density + EOS + force on the same planes: against their plain
-    # versions, and against the pair sweep (one function, two routes)
-    pad = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
-    x1, y1, vx0, vy0, m, occf, hx, hy, _ = M9.unbind(1)
+    # density + EOS + force on the same planes (force's rho and pressure
+    # from the sweep's rho): against their plain versions, and against the
+    # pair sweep (one function, two routes)
     dk, fk = fl.density_consts, fl.force_consts
-    D4 = torch.stack([x1, y1, m, occf], 1)
     rho = SK.density(D4, **dk)
-    rho_pad = pad(rho)
-    pres = fl.eos(rho_pad)
-    D8 = torch.stack([x1, y1, vx0, vy0, m, rho_pad, pres, occf], 1)
     frc = SK.force(D8, **fk)
     rho_p = SK.density_plain(D4, **dk)
     frc_p = SK.force_plain(D8, **fk)
@@ -236,51 +365,33 @@ def check_kernels(dev):
 
     errs["density"] = max_err(rho, rho_p)
     errs["force"] = max(max_err(frc[0], frc_p[0]), max_err(frc[1], frc_p[1]))
-    sweep_gap = max(max_err(frc[0], sw[1]), max_err(frc[1], sw[2]))
     bad_f = SK.force_plain(D8, **dict(fk, min_rho=rho_q))
-    print(f"density: rho rel err {rel(rho, rho_p):.3e} of its plain version, "
-          f"{rel(rho, sw[0]):.3e} of the pair sweep's; force: max abs err "
-          f"{errs['force']:.3e} of its plain version, {sweep_gap:.3e} of the "
-          f"pair sweep's (scale {fscale:.6g}); planted fault: "
+    print(f"density: rho rel err {rel(rho, rho_p):.3e} of its plain version;"
+          f" force: max abs err {errs['force']:.3e} of its plain version "
+          f"(scale {fscale:.6g}); planted fault: "
           f"{force_misses(bad_f, frc_p)} elements over the limit",
           flush=True)
-    if rel(rho, rho_p) > 1e-5 or rel(rho, sw[0]) > 1e-5:
-        fail("density differs from its plain version or the pair sweep")
-    if force_misses(frc, frc_p) or force_misses(frc, sw[1:]) or \
-            force_misses(frc):
-        fail("force differs from its plain version or the pair sweep")
+    if rel(rho, rho_p) > 1e-5:
+        fail("density differs from its plain version")
+    if force_misses(frc, frc_p) or force_misses(frc):
+        fail("force differs from its plain version")
     if force_misses(bad_f, frc_p) == 0:
         fail("force: the check missed a planted fault")
+    # the pair sweep against its twin: density + EOS + force sum the same
+    # pairs in the same order through csrc/sph_pair.cuh, so the two routes
+    # must agree to the bit
+    twins = {"pair_sweep": all(same_bits(a, b)
+                               for a, b in zip(sw, (rho, *frc)))}
+    print(f"pair_sweep vs density + EOS + force: bitwise equal "
+          f"{twins['pair_sweep']}", flush=True)
+    if not twins["pair_sweep"]:
+        fail("pair_sweep differs from density + EOS + force")
 
-    # the couplings twice at these shapes: on the main path's own inputs
-    # (the boundary margin keeps the dam's fluid off its walls, so those
-    # cells copy through), and with the dam's floor wall moved into the
-    # fluid column, both as a big solid and in slot 0 of every cell, so
-    # that the kernels' candidate math runs on every occupied cell.
-    # coupling9 takes M9 and the sweep's results; coupling takes the same
-    # sub-step as planes (second kick and EOS done here)
-    cpl, fld, big = fl.coupling_inputs(state, M9)
-    live = (M9[:, SK.M9_OCC].sum(1) > 0).to(torch.int32)
-    xs = M9[:, SK.M9_X][M9[:, SK.M9_OCC] > 0]
-    ys = M9[:, SK.M9_Y][M9[:, SK.M9_OCC] > 0]
-    wall = big[3].clone()                       # the floor wall's row
-    shift = float(ys.mean()) - float(wall[SK.RW_PY])
-    for i in (SK.RW_PY, SK.RW_MINY, SK.RW_MAXY):
-        wall[i] += shift
-    wall[SK.RW_V0 + 1:SK.RW_V0 + 2 * ck["V"]:2] += shift   # vertex ys
-    wall[SK.RW_MINX] = float(xs.min()) - 0.1
-    wall[SK.RW_MAXX] = float(xs.max()) + 0.1
-    big2 = big.clone()
-    big2[3] = wall
-    fld2 = fld.clone()
-    fld2[:, 0] = wall[:, None]
-    ax1, ay1 = pad(sw[1]), pad(sw[2])
-    D10 = torch.stack([x1, y1, hx + ck["half_dt"] * ax1,
-                       hy + ck["half_dt"] * ay1, pad(sw[0]),
-                       fl.eos(pad(sw[0])), m, occf, ax1, ay1], 1)
-    cands = ((cpl, fld, big), (live.contiguous(), fld2, big2))
-    args2 = (*cands[1], M9, *sw)
-    args2s = (*cands[1], D10)
+    # the couplings on both candidate sets: coupling9 takes M9 and the
+    # sweep's results, coupling the same sub-step as planes (D10)
+    cpl, fld, big = cands["main"]
+    live, fld2, big2 = cands["wall"]
+    m, pid, occf = M9[:, SK.M9_M], M9[:, SK.M9_ID], M9[:, SK.M9_OCC]
     acc = [SK.ST_AX, SK.ST_AY]
     rest = [f for f in range(9) if f not in acc]
     views = {   # an op's outputs as (state planes, accelerations, PL, bigp)
@@ -289,13 +400,15 @@ def check_kernels(dev):
         "coupling": lambda out: (torch.stack(out[:4]), torch.stack(out[4:6]),
                                  out[6], out[7]),
     }
+    outs = {}
     for name, op, tail in (("coupling9", SK.coupling9, (M9, *sw)),
                            ("coupling", SK.coupling, (D10,))):
         errs[name] = 0.0
         contact = 0
-        for cand in cands:
+        for cname, cand in cands.items():
             a = (*cand, *tail)
-            st_k, a_k, pl_k, big_k = views[name](op(*a, cn=ck))
+            outs[name, cname] = op(*a, cn=ck)
+            st_k, a_k, pl_k, big_k = views[name](outs[name, cname])
             st_p, a_p, pl_p, big_p = views[name](op.plain(*a, cn=ck))
             st_err = max_err(st_k, st_p)
             a_err = max_err(a_k, a_p)
@@ -310,9 +423,9 @@ def check_kernels(dev):
                              else 0.0)
             errs[name] = max(errs[name], st_err, big_err, pl_err)
             contact = int((big_p.abs() > 0).sum() + (pl_p.abs() > 0).sum())
-            print(f"{name}: cells coupled {int((a[0] > 0).sum())}, nonzero "
-                  f"partials {contact}, state err {st_err:.3e}, accel err "
-                  f"{a_err:.3e} of {a_scale:.4g}, partials err "
+            print(f"{name} ({cname}): cells coupled {int((a[0] > 0).sum())}"
+                  f", nonzero partials {contact}, state err {st_err:.3e}, "
+                  f"accel err {a_err:.3e} of {a_scale:.4g}, partials err "
                   f"{max(big_err, pl_err):.3e} of {part_scale:.4g}",
                   flush=True)
             if st_err > 1e-5 or a_err > max(1e-5, 1e-6 * a_scale) or \
@@ -321,42 +434,180 @@ def check_kernels(dev):
         if contact == 0:
             fail(f"{name}: the moved wall coupled with no particle")
 
-    times = {
-        "migrate": (cuda_ms(lambda: SK.migrate(ST, **mk)),
-                    cuda_ms(lambda: SK.migrate_plain(ST, **mk))),
-        "pair_sweep": (cuda_ms(lambda: SK.pair_sweep(M9, **sk)),
-                       cuda_ms(lambda: SK.pair_sweep_plain(M9, **sk), 5)),
-        "coupling9": (cuda_ms(lambda: SK.coupling9(*args2, cn=ck)),
-                      cuda_ms(lambda: SK.coupling9_plain(*args2, cn=ck),
-                              5)),
-        "density": (cuda_ms(lambda: SK.density(D4, **dk)),
-                    cuda_ms(lambda: SK.density_plain(D4, **dk), 5)),
-        "force": (cuda_ms(lambda: SK.force(D8, **fk)),
-                  cuda_ms(lambda: SK.force_plain(D8, **fk), 5)),
-        "coupling": (cuda_ms(lambda: SK.coupling(*args2s, cn=ck)),
-                     cuda_ms(lambda: SK.coupling_plain(*args2s, cn=ck), 5)),
+    # coupling9 against its twin, the split coupling on the same sub-step:
+    # one candidate order and one reduction order, so the same bits
+    for cname in cands:
+        st9, pl9, bp9 = outs["coupling9", cname]
+        oc = outs["coupling", cname]
+        st_c = torch.stack([*oc[:6], m, pid, occf], 1)
+        st_c[0] = st_c[-1] = 0.0
+        twins[f"coupling9_{cname}"] = same_bits(st9, st_c) and \
+            same_bits(pl9, oc[6]) and same_bits(bp9, oc[7])
+    print(f"coupling9 vs coupling: ST, PL and bigp bitwise equal: main "
+          f"inputs {twins['coupling9_main']}, moved wall "
+          f"{twins['coupling9_wall']}", flush=True)
+    if not (twins["coupling9_main"] and twins["coupling9_wall"]):
+        fail("coupling9 differs from coupling on the same sub-step")
+
+    # planted: NaN in x, y, vx, vy and m of every empty slot of M9 must not
+    # reach rho, fx, fy, PL or bigp, and ST only where the slot's own x, y
+    # and m are copied through
+    M9n = M9.clone()
+    empty = M9n[:, SK.M9_OCC] <= 0
+    nan = float("nan")
+    for f in (SK.M9_X, SK.M9_Y, SK.M9_VX, SK.M9_VY, SK.M9_M):
+        M9n[:, f][empty] = nan
+    swn = SK.pair_sweep(M9n, **sk)
+    nan_ok = all(same_bits(a, b) for a, b in zip(swn, sw))
+    for cname, cand in cands.items():
+        st_n, pl_n, bp_n = SK.coupling9(*cand, M9n, *swn, cn=ck)
+        st9, pl9, bp9 = outs["coupling9", cname]
+        st_e = st9.clone()
+        for f in (SK.ST_X, SK.ST_Y, SK.ST_M):
+            st_e[1:-1, f][empty[1:-1]] = nan
+        nan_ok = nan_ok and same_bits_or_nan(st_n, st_e) and \
+            same_bits(pl_n, pl9) and same_bits(bp_n, bp9)
+    twins["nan_in_empty_slots"] = nan_ok
+    print(f"planted NaN in the empty slots of M9: pair_sweep and coupling9 "
+          f"outputs unchanged {nan_ok}", flush=True)
+    if not nan_ok:
+        fail("NaN in empty slots reached the pair sweep or coupling9")
+
+    main9 = (*cands["main"], M9, *sw)
+    wall9 = (*cands["wall"], M9, *sw)
+    args2s = (*cands["wall"], D10)
+    calls = {   # name -> (kernel, plain version) on the same inputs
+        "migrate": (lambda: SK.migrate(ST, **mk),
+                    lambda: SK.migrate_plain(ST, **mk)),
+        "pair_sweep": (lambda: SK.pair_sweep(M9, **sk),
+                       lambda: SK.pair_sweep_plain(M9, **sk)),
+        "coupling9": (lambda: SK.coupling9(*main9, cn=ck),
+                      lambda: SK.coupling9_plain(*main9, cn=ck)),
+        "density": (lambda: SK.density(D4, **dk),
+                    lambda: SK.density_plain(D4, **dk)),
+        "force": (lambda: SK.force(D8, **fk),
+                  lambda: SK.force_plain(D8, **fk)),
+        "coupling": (lambda: SK.coupling(*args2s, cn=ck),
+                     lambda: SK.coupling_plain(*args2s, cn=ck)),
+        "coupling9_wall": (lambda: SK.coupling9(*wall9, cn=ck),
+                           lambda: SK.coupling9_plain(*wall9, cn=ck)),
     }
+    times = {name: (cuda_ms(k), cuda_ms(p, 5)) for name, (k, p) in
+             calls.items()}
+    warm = {name: cuda_ms(k, cold=False) for name, (k, _) in calls.items()}
+    wall_times = times.pop("coupling9_wall")
     n_occ = float(occ.sum())
-    live2 = (M9[:, SK.M9_OCC] > 0) & (args2[0] > 0)[:, None, :]
-    outk = SK.coupling9(*args2, cn=ck)
-    outs = SK.coupling(*args2s, cn=ck)
     pairs = neighbour_pairs(occ.to(torch.int32))
-    cpl_ops = float(live2.sum()) * (1 + len(sc.spec.solid_big_idx)) \
-        * (CPL_OPS_PER_VERT * ck["V"] + CPL_OPS)
+
+    def cpl_ops(c):
+        """Operations of the candidate math on the particles that couple."""
+        live_c = occ & (c > 0)[:, None, :]
+        return float(live_c.sum()) * (1 + len(sc.spec.solid_big_idx)) \
+            * (CPL_OPS_PER_VERT * ck["V"] + CPL_OPS)
+
     bounds = {
         "migrate": bound(nbytes(ST, M9), MIGRATE_OPS * n_occ),
-        "pair_sweep": bound(nbytes(M9, *sw), PAIR_OPS * pairs),
-        "coupling9": bound(nbytes(*args2, *outk), cpl_ops),
+        "pair_sweep": bound(pair_sweep_bytes(M9[:, SK.M9_OCC], sw),
+                            PAIR_OPS * pairs),
+        "coupling9": bound(coupling9_bytes(cpl, fld, big, M9,
+                                           outs["coupling9", "main"]),
+                           cpl_ops(cpl)),
         "density": bound(nbytes(D4, rho), DENSITY_OPS * pairs),
         "force": bound(nbytes(D8, *frc), FORCE_OPS * pairs),
-        "coupling": bound(nbytes(*args2s, *outs), cpl_ops),
+        "coupling": bound(nbytes(*args2s, *outs["coupling", "wall"]),
+                          cpl_ops(live)),
     }
+    wall_bound = bound(coupling9_bytes(live, fld2, big2, M9,
+                                       outs["coupling9", "wall"]),
+                       cpl_ops(live))
     for name in bounds:
         print(f"kernel {name}: max_abs_err {errs[name]:.3e}  "
-              f"kernel {times[name][0]:.4f} ms  plain {times[name][1]:.4f} ms"
-              f"  bound {bounds[name][0]:.4f} ms ({bounds[name][1]})",
-              flush=True)
-    return errs, times, bounds
+              f"kernel {times[name][0]:.4f} ms ({warm[name]:.4f} warm)  "
+              f"plain {times[name][1]:.4f} ms  bound {bounds[name][0]:.4f} ms"
+              f" ({bounds[name][1]})"
+              + (" (main path inputs: every cell copies through)"
+                 if name == "coupling9" else ""), flush=True)
+    print(f"kernel coupling9 (moved wall: every occupied cell couples): "
+          f"kernel {wall_times[0]:.4f} ms ({warm['coupling9_wall']:.4f} "
+          f"warm)  plain {wall_times[1]:.4f} ms  bound {wall_bound[0]:.4f} ms"
+          f" ({wall_bound[1]})", flush=True)
+    return errs, times, bounds, twins
+
+
+COMPARE_REPS = 50        # launches a kernel is timed over in kernel_times
+
+
+def kernel_times(root: Path) -> dict:
+    """Time the SPH kernels of the lpe_tpu_torch package under ``root`` on
+    the inputs of check_kernels (coupling9 and coupling on both candidate
+    sets): ms a launch with L2 flushed before each (``ms``) and back to back
+    (``warm``), COMPARE_REPS launches each, and a hash of each kernel's
+    output bytes (``bits``)."""
+    import hashlib
+    sys.path.insert(0, str(root))
+    import torch
+    from lpe_tpu_torch.ops import _build
+    from lpe_tpu_torch.ops import sph_kernels as SK
+
+    _build.library()
+    dev = torch.device("cuda", 0)
+    _, fl, state, ST = dam_sub_step(dev)
+    inp = sub_step_inputs(SK, fl, state, ST)
+    M9, sw, ck = inp["M9"], inp["sw"], fl.couple_consts
+    calls = {"migrate": lambda: SK.migrate(ST, **fl.migrate_consts),
+             "pair_sweep": lambda: SK.pair_sweep(M9, **fl.sweep_consts),
+             "density": lambda: SK.density(inp["D4"], **fl.density_consts),
+             "force": lambda: SK.force(inp["D8"], **fl.force_consts)}
+    for name, c in inp["cands"].items():
+        calls[f"coupling9_{name}"] = lambda c=c: SK.coupling9(*c, M9, *sw,
+                                                              cn=ck)
+        calls[f"coupling_{name}"] = lambda c=c: SK.coupling(*c, inp["D10"],
+                                                            cn=ck)
+    ms = {name: cuda_ms(fn, COMPARE_REPS) for name, fn in calls.items()}
+    warm = {name: cuda_ms(fn, COMPARE_REPS, cold=False)
+            for name, fn in calls.items()}
+    bits = {}
+    for name, fn in calls.items():
+        out = fn()
+        h = hashlib.sha256()
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        bits[name] = h.hexdigest()[:16]
+    return {"root": str(root), "card": torch.cuda.get_device_name(0),
+            "ms": ms, "warm": warm, "bits": bits}
+
+
+def compare(parent: Path) -> None:
+    """Time the SPH kernels of the tree ``parent`` (another checkout, e.g.
+    ``git archive`` of the parent commit into a directory that .gitignore
+    lists) and of this checkout, alternated on one card: four processes,
+    parent, this, this, parent, each building its tree's kernels and
+    running kernel_times. Prints each run's line, each tree's mean, and
+    whether each kernel's outputs had the same bits in all four runs."""
+    runs = []
+    for root in (parent, ROOT, ROOT, parent):
+        r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--kernel-times", str(root)],
+                           capture_output=True, text=True, cwd=str(root),
+                           timeout=900)
+        if r.returncode != 0:
+            fail(f"kernel times of {root}: exit {r.returncode}\n"
+                 f"{r.stderr[-4000:]}")
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        print(json.dumps({k: line[k] for k in ("root", "card", "ms",
+                                                "warm")}), flush=True)
+        runs.append(line)
+    for label, root in (("parent", parent), ("this tree", ROOT)):
+        got = [x for x in runs if x["root"] == str(root)]
+        for key, how in (("ms", "L2 flushed"), ("warm", "warm")):
+            mean = {k: sum(g[key][k] for g in got) / len(got)
+                    for k in got[0][key]}
+            print(f"{label} ({root}): mean ms, {how}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in mean.items()), flush=True)
+    same = {k: len({x["bits"][k] for x in runs}) == 1
+            for k in runs[0]["bits"]}
+    print("the same output bits in all four runs: " + ", ".join(
+        f"{k} {v}" for k, v in same.items()), flush=True)
 
 
 def fluid_cfg(cfg, **kw):
@@ -420,15 +671,23 @@ def check_split_tick(dev, sc, state):
     dpos = max_err(ends[0].pos[liq], ends[1].pos[liq])
     rho_rel = float(((ends[0].density[liq] - ends[1].density[liq]).abs()
                      / ends[1].density[liq].abs().clamp(min=1e-30)).max())
+    bitwise = all(same_bits(getattr(ends[0], f)[liq], getattr(ends[1], f)[liq])
+                  for f in ("pos", "vel", "density", "pressure"))
     print(f"dam {DAM_N}: one tick, split resident vs stacked: max |dpos| "
-          f"{dpos:.3e} m, rho rel {rho_rel:.3e}", flush=True)
+          f"{dpos:.3e} m, rho rel {rho_rel:.3e}; bitwise equal {bitwise}",
+          flush=True)
     if dpos > 1e-4 or rho_rel > 1e-3:
         fail("the split resident tick differs from the stacked tick")
+    return bitwise
 
 
 def run_dam_scatter(dev, card):
     """Phase 6b: the per-tick scatter step with the split pair kernels, 10
-    ticks twice from the initial state: launches, bitwise repeatability."""
+    ticks twice from the initial state: launches, bitwise repeatability.
+    Then the pair sweep's second caller: one scatter tick from the state
+    those runs reach with the sweep (the default pair backend: a fresh grid
+    with zero hx, hy and id planes every sub-step) must equal one with
+    density + EOS + force to the bit. Returns whether it did."""
     import torch
     from lpe_tpu_torch.ops import sph_kernels as SK
     from lpe_tpu_torch.scenarios.bench_scenes import build_dam_break
@@ -467,6 +726,32 @@ def run_dam_scatter(dev, card):
                            getattr(finals[1], name)):
             fail(f"dam scatter: two runs from one state differ in {name}")
     print("dam scatter: two 10-tick runs are bitwise equal", flush=True)
+
+    liq = sc.spec.liquid_slice
+    ends = {}
+    for pb in ("auto", "pallas"):
+        one = build_run_fn(sc.spec, fluid_cfg(sc.cfg, residency="off",
+                                              pair_backend=pb),
+                           ticks=1, device=dev)
+        SK.reset_counters()
+        ends[pb] = one(state).bodies
+        torch.cuda.synchronize()
+        launches = {op.name: op.launches for op in SK.OPS if op.launches}
+        want = {"pair_sweep": SUBSTEPS} if pb == "auto" else \
+            {"density": SUBSTEPS, "force": SUBSTEPS}
+        if launches != want or any(op.plain_calls for op in SK.OPS):
+            fail(f"dam scatter {pb}: launches {launches}, expected {want}")
+    bitwise = all(same_bits(getattr(ends["auto"], f)[liq],
+                            getattr(ends["pallas"], f)[liq])
+                  for f in ("pos", "vel", "density", "pressure"))
+    dpos = max_err(ends["auto"].pos[liq], ends["pallas"].pos[liq])
+    print(f"dam {DAM_N} scatter: one tick with the pair sweep vs density + "
+          f"force: max |dpos| {dpos:.3e} m; bitwise equal {bitwise}",
+          flush=True)
+    if not bitwise:
+        fail("the scatter step's pair sweep differs from density + EOS + "
+             "force")
+    return bitwise
 
 
 def run_simple_fluid(dev, card, reps=2, **fluid_kw):
@@ -631,6 +916,7 @@ def check_narrowphase(state, run):
         fail("narrowphase differs from its plain version")
     times = (cuda_ms(lambda: RK.narrowphase(*args)),
              cuda_ms(lambda: RK.narrowphase_plain(*args), 5))
+    warm = cuda_ms(lambda: RK.narrowphase(*args), cold=False)
     # operations this data needs per row, by the rings' vertex counts n =
     # na + nb: n^2 projections of 3 each, ~24 per vertex for the world ring,
     # centroid and face normals, ~40 for the clip
@@ -638,20 +924,36 @@ def check_narrowphase(state, run):
     ops = float((3 * n * n + 24 * n + 40).sum())
     bnd = bound(nbytes(*args, *got), ops)
     print(f"kernel narrowphase: max_abs_err {max(err.values()):.3e}  kernel "
-          f"{times[0]:.4f} ms  plain {times[1]:.4f} ms  bound {bnd[0]:.4f} ms "
-          f"({bnd[1]})", flush=True)
+          f"{times[0]:.4f} ms ({warm:.4f} warm)  plain {times[1]:.4f} ms  "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
     return max(err.values()), times, bnd
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--compare", type=Path, metavar="PARENT_DIR",
+                    help="time the SPH kernels of PARENT_DIR and of this "
+                         "checkout alternately, and do nothing else")
+    ap.add_argument("--kernel-times", type=Path, help=argparse.SUPPRESS)
+    a = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
-    if not (ROOT / "lpe_tpu_torch" / "ops" / "csrc").is_dir():
-        fail(f"run from a checkout: no lpe_tpu_torch package beside {ROOT}")
+    for root in (ROOT, a.compare, a.kernel_times):
+        if root is not None and \
+                not (root / "lpe_tpu_torch" / "ops" / "csrc").is_dir():
+            fail(f"not a checkout: no lpe_tpu_torch package in {root}")
+    if a.kernel_times is not None:
+        print(json.dumps(kernel_times(a.kernel_times.resolve())), flush=True)
+        return 0
+    if a.compare is not None:
+        print(card_line(), flush=True)
+        compare(a.compare.resolve())
+        return 0
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -676,7 +978,7 @@ def main() -> int:
             print("  nvcc:", line.strip(), flush=True)
 
     # 3.-6.
-    errs, times, bounds = check_kernels(dev)
+    errs, times, bounds, twins = check_kernels(dev)
     stacked = dict(migrate=1, pair_sweep=1, coupling9=1)
     launches, run, state, _ = run_dam(dev, card, stacked)
     run_simple_fluid(dev, card)
@@ -695,8 +997,8 @@ def main() -> int:
     split = dict(migrate=1, density=1, force=1, coupling=1)
     ls, _, sstate, ssc = run_dam(dev, card, split, pair_backend="pallas")
     launches.update({k: ls[k] for k in ("density", "force", "coupling")})
-    check_split_tick(dev, ssc, sstate)
-    run_dam_scatter(dev, card)
+    twins["split_tick"] = check_split_tick(dev, ssc, sstate)
+    twins["scatter_tick"] = run_dam_scatter(dev, card)
     run_simple_fluid(dev, card, reps=1, pair_backend="pallas")
 
     # 7.-8.
@@ -711,6 +1013,7 @@ def main() -> int:
                     bound_ms=bounds[name][0], bound_by=bounds[name][1],
                     library_ms=None)
                for name, (src, rep) in KERNEL_INFO.items()]
+    print(json.dumps({"bitwise_twins": twins}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,15 @@
 // coupling kernel (coupling9.cu) and the split one (coupling.cu).
 //
 // The math is that of lpe_tpu/ops/pallas_sph.py: hoist_particle_terms
-// (:266), _cand_math (:290), _couple_rows (:488) and _couple_fin (:449).
-// A block is one grid row, BIG_BLOCK_COLS columns and all K slots (K <=
-// 32), one thread per (slot, column), columns fastest. A candidate is
-// skipped when no particle of the block lies in its box (__syncthreads_or;
-// the TPU kernel skipped per tile). The per-(row, slot, column) partials and
-// the per-block big-solid sums are reduced in shared memory in a fixed
-// order, never with float atomics, so one input gives one bitwise result.
+// (:266), _cand_math (:290), _couple_rows (:488) and _couple_fin (:449),
+// here hoist, cand_math, cand_add and couple_fin. Both kernels use a block
+// of one grid row, BIG_BLOCK_COLS columns and all K slots (K <= 32), one
+// thread per (slot, column), columns fastest. The per-(row, slot, column)
+// partials and the per-block big-solid sums are reduced in shared memory in
+// a fixed order, never with float atomics, so one input gives one bitwise
+// result. couple_block is the split kernel's block body: every thread walks
+// every candidate that some particle of the block lies in the box of
+// (__syncthreads_or; the TPU kernel skipped per tile).
 #pragma once
 
 #include "common.cuh"
@@ -195,12 +197,70 @@ struct CoupleOut {
   float x, y, vx, vy, ax, ay;
 };
 
+// A particle's sums over its candidates, in candidate order.
+struct CoupleAcc {
+  float acx, acy, sfx, sfy;
+  bool had_pos, had_imp;
+};
+
+__device__ __forceinline__ void cand_add(CoupleAcc& a, const Cand& o) {
+  a.acx = a.acx + o.corr_x;
+  a.acy = a.acy + o.corr_y;
+  a.sfx = a.sfx + o.fx;
+  a.sfy = a.sfy + o.fy;
+  a.had_pos = a.had_pos || o.inside;
+  a.had_imp = a.had_imp || o.act;
+}
+
+// Fluid back-reaction, capped push-out and PBD velocity fix-up: the
+// particle's new state. With no candidate (zero sums, no flag) it is the
+// copy-through, with the floor clamp on the position.
+__device__ __forceinline__ CoupleOut couple_fin(const CoupleParams& P,
+                                                const CoupleAcc& a,
+                                                const CoupleIn& in) {
+  const float px = in.px, py = in.py, vx1 = in.vx1, vy1 = in.vy1;
+  const float m = in.m;
+  const float acx = a.acx, acy = a.acy;
+  const float ffx = -a.sfx * P.fluid_force_scale;
+  const float ffy = -a.sfy * P.fluid_force_scale;
+  const float fm = sqrtf(ffx * ffx + ffy * ffy);
+  const float fsc =
+      fm > P.fluid_force_max ? P.fluid_force_max / fmaxf(fm, 1e-30f) : 1.f;
+  const float inv_m = m > 1e-4f ? 1.f / m : 1.f;
+  const float axo = a.had_imp ? in.ax + ffx * fsc * inv_m : in.ax;
+  const float ayo = a.had_imp ? in.ay + ffy * fsc * inv_m : in.ay;
+  const float mag = sqrtf(acx * acx + acy * acy);
+  const float scale =
+      mag > P.max_correction ? P.max_correction / fmaxf(mag, 1e-30f) : 1.f;
+  float nx_ = px - acx * scale;
+  float ny_ = py - acy * scale;
+  nx_ = nx_ < 0.f ? P.boundary_offset : nx_;
+  ny_ = ny_ < 0.f ? P.boundary_offset : ny_;
+  const float ddx = nx_ - px;
+  const float ddy = ny_ - py;
+  const float dmag = sqrtf(ddx * ddx + ddy * ddy);
+  const bool moved = a.had_pos && dmag > P.min_position_change;
+  const float cdx = ddx / fmaxf(dmag, 1e-30f);
+  const float cdy = ddy / fmaxf(dmag, 1e-30f);
+  const float valong = vx1 * cdx + vy1 * cdy;
+  const bool fix = moved && valong < 0.f;
+  CoupleOut o;
+  o.x = nx_;
+  o.y = ny_;
+  o.vx = fix ? vx1 - valong * cdx : vx1;
+  o.vy = fix ? vy1 - valong * cdy : vy1;
+  o.ax = axo;
+  o.ay = ayo;
+  return o;
+}
+
 // Shared memory of a coupling block: red[3][K][BIG_BLOCK_COLS] floats.
 inline size_t couple_smem(const CoupleParams* P) {
   return 3 * (size_t)P->K * BIG_BLOCK_COLS * sizeof(float);
 }
 
-// Zero the partial outputs of an apron row (p = 0 or rows - 1).
+// Zero the partial outputs of row p in this block's columns (an apron row,
+// or a block with no coupled particle).
 __device__ __forceinline__ void couple_zero_partials(const CoupleParams& P,
                                                      float* pl, float* bigp,
                                                      int p, int c,
@@ -232,11 +292,9 @@ __device__ __forceinline__ CoupleOut couple_block(
   float* red_t = red + 2 * K * BIG_BLOCK_COLS;
   const int ridx = k * BIG_BLOCK_COLS + tx;
   const float px = in.px, py = in.py, vx1 = in.vx1, vy1 = in.vy1;
-  const float m = in.m;
   const bool live = in.live;
-  const Hoist hp = hoist(P, py, in.rho, in.pe, m);
-  float acx = 0.f, acy = 0.f, sfx = 0.f, sfy = 0.f;
-  bool had_pos = false, had_imp = false;
+  const Hoist hp = hoist(P, py, in.rho, in.pe, in.m);
+  CoupleAcc acc = {0.f, 0.f, 0.f, 0.f, false, false};
 
   // rasterized per-cell candidates: one column's slot s shares its params
   for (int s = 0; s < S; ++s) {
@@ -246,12 +304,7 @@ __device__ __forceinline__ CoupleOut couple_block(
     if (__syncthreads_or(inb)) {
       if (col_ok) {
         const Cand o = cand_math(P, prm, W, inb, px, py, vx1, vy1, hp);
-        acx = acx + o.corr_x;
-        acy = acy + o.corr_y;
-        sfx = sfx + o.fx;
-        sfy = sfy + o.fy;
-        had_pos = had_pos || o.inside;
-        had_imp = had_imp || o.act;
+        cand_add(acc, o);
         cfx = o.fx;
         cfy = o.fy;
         ctq = o.tq;
@@ -284,12 +337,7 @@ __device__ __forceinline__ CoupleOut couple_block(
     if (__syncthreads_or(inb)) {
       if (col_ok) {
         const Cand o = cand_math(P, prm, 1, inb, px, py, vx1, vy1, hp);
-        acx = acx + o.corr_x;
-        acy = acy + o.corr_y;
-        sfx = sfx + o.fx;
-        sfy = sfy + o.fy;
-        had_pos = had_pos || o.inside;
-        had_imp = had_imp || o.act;
+        cand_add(acc, o);
         cfx = o.fx;
         cfy = o.fy;
         ctq = o.tq;
@@ -326,38 +374,7 @@ __device__ __forceinline__ CoupleOut couple_block(
     __syncthreads();
   }
 
-  // fluid back-reaction, capped push-out, PBD velocity fix-up
-  const float ffx = -sfx * P.fluid_force_scale;
-  const float ffy = -sfy * P.fluid_force_scale;
-  const float fm = sqrtf(ffx * ffx + ffy * ffy);
-  const float fsc =
-      fm > P.fluid_force_max ? P.fluid_force_max / fmaxf(fm, 1e-30f) : 1.f;
-  const float inv_m = m > 1e-4f ? 1.f / m : 1.f;
-  const float axo = had_imp ? in.ax + ffx * fsc * inv_m : in.ax;
-  const float ayo = had_imp ? in.ay + ffy * fsc * inv_m : in.ay;
-  const float mag = sqrtf(acx * acx + acy * acy);
-  const float scale =
-      mag > P.max_correction ? P.max_correction / fmaxf(mag, 1e-30f) : 1.f;
-  float nx_ = px - acx * scale;
-  float ny_ = py - acy * scale;
-  nx_ = nx_ < 0.f ? P.boundary_offset : nx_;
-  ny_ = ny_ < 0.f ? P.boundary_offset : ny_;
-  const float ddx = nx_ - px;
-  const float ddy = ny_ - py;
-  const float dmag = sqrtf(ddx * ddx + ddy * ddy);
-  const bool moved = had_pos && dmag > P.min_position_change;
-  const float cdx = ddx / fmaxf(dmag, 1e-30f);
-  const float cdy = ddy / fmaxf(dmag, 1e-30f);
-  const float valong = vx1 * cdx + vy1 * cdy;
-  const bool fix = moved && valong < 0.f;
-  CoupleOut o;
-  o.x = nx_;
-  o.y = ny_;
-  o.vx = fix ? vx1 - valong * cdx : vx1;
-  o.vy = fix ? vy1 - valong * cdy : vy1;
-  o.ax = axo;
-  o.ay = ayo;
-  return o;
+  return couple_fin(P, acc, in);
 }
 
 }  // namespace

@@ -7,10 +7,10 @@
 // slots. The TPU kernel's per-(row, tile) occupancy table only let it skip
 // empty tiles; here an empty slot costs one occupancy load.
 //
-// What bounds it on the H100: memory latency, as the pair sweep's density
-// launch (pair_sweep.cu), whose arithmetic (sph_pair.cuh) and thread layout
-// it shares: one thread per (row, slot, column), pairs summed in (dy, dx,
-// slot) order, no atomics.
+// What bounds it on the H100: memory latency. One thread per (row, slot,
+// column), pairs summed in (dy, dx, slot) order through the pair
+// arithmetic of sph_pair.cuh, which the pair sweep shares, so the two give
+// the same bits; no atomics.
 #include "sph_pair.cuh"
 
 __global__ void split_density_kernel(const float* __restrict__ d4,

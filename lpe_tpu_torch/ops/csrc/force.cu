@@ -10,9 +10,9 @@
 // when min_d2 <= r^2 < h^2 and both densities reach min_rho.
 //
 // What bounds it on the H100: memory latency (eight plane gathers per live
-// pair out of L2), as the pair sweep's force launch, whose arithmetic
-// (sph_pair.cuh) and thread layout it shares: one thread per (row, slot,
-// column), pairs summed in (dy, dx, slot) order, no atomics.
+// pair out of L2). One thread per (row, slot, column), pairs summed in
+// (dy, dx, slot) order through the pair arithmetic of sph_pair.cuh, which
+// the pair sweep shares, so the two give the same bits; no atomics.
 #include "sph_pair.cuh"
 
 __global__ void split_force_kernel(const float* __restrict__ d8,
@@ -26,8 +26,8 @@ __global__ void split_force_kernel(const float* __restrict__ d8,
   const PairPlanes g = {d8,           d8 + plane,     d8 + 2 * plane,
                         d8 + 3 * plane, d8 + 4 * plane, d8 + 7 * plane,
                         8 * plane};
-  pair_force<false>(g, d8 + 5 * plane, d8 + 6 * plane, 8 * plane, 0, p, k, c,
-                    P, fx_out[idx], fy_out[idx]);
+  pair_force(g, d8 + 5 * plane, d8 + 6 * plane, 8 * plane, 0, p, k, c, P,
+             fx_out[idx], fy_out[idx]);
 }
 
 LPE_EXPORT int lpe_force(const float* d8, float* fx, float* fy,

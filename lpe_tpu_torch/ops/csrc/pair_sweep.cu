@@ -1,65 +1,321 @@
 // SPH pair sweep: poly6 density, EOS pressure, spiky pressure force and
-// viscosity-Laplacian force over each particle's 3x3 neighbour cells.
+// viscosity-Laplacian force over each particle's 3x3 neighbour cells, in
+// one launch.
 //
 // Replaces the Pallas TPU kernel make_pair_sweep(F=9) / _sweep_kernel
 // (lpe_tpu/ops/pallas_sph.py:804, built at :1058). Input M9 [rows, 9, K,
-// W]; outputs rho, fx, fy [ny, K, W] over the interior rows.
+// W] (planes x, y, vx, vy, m, occ are read); outputs rho, fx, fy [ny, K, W]
+// over the interior rows, 0 in empty slots.
 //
-// What bounds it on the H100: memory latency. Per particle it visits 9
-// cells x K slots, skips the empty ones on one occupancy load, and spends
-// ~30 float32 flops per live pair; the grid (~40 MB at 100k particles)
-// stays in the 50 MB L2 between the two launches, so the loads are L2
-// hits and the work is latency-bound gathers, far from the compute roof.
+// What bounds it on the H100: not the arithmetic (a live pair costs ~12
+// float32 operations in the density pass and ~48 in the force pass, far
+// below the fp32 rate) and, at the least, bytes: one read of the occupancy
+// plane and of the live slots' x, y, vx, vy, m, and one write of three
+// planes. A grid is sparse (DAM_BREAK 100k: 8% of the slots hold a
+// particle, 5.5 particles in an occupied cell of K = 16), so a thread per
+// slot spends its loads on empty slots and its warps idle, and a
+// neighbour's data is fetched again by every particle that sees it. Once
+// those are gone, what is left is each particle's serial chain of counted
+// pairs (a sqrt and three IEEE divides each) and the staging of its rows.
 //
-// Design: the TPU kernel ran its rows in order and kept rho in a rolling
-// on-chip ring. Blocks on the H100 run in no order, so the sweep is two
-// launches on one stream: density first (with the self term), then forces,
-// which read the neighbours' rho and derive their pressure inline. One
-// thread per (row, slot, column), columns fastest, so a warp's loads of a
-// plane are contiguous. Each thread sums its pairs in a fixed order
-// (dy, dx, slot): deterministic, no atomics. The pair arithmetic itself is
-// sph_pair.cuh's, which the split density and force kernels share.
+// Design (the TPU kernel's rolling rows, recast for blocks that run in no
+// order):
+// - A block owns SW_TILE columns and a band of SW_BAND interior rows. It
+//   walks rows p0-2 .. p1+1 in order and stages each row's window (the
+//   tile plus two halo columns each side) into a ring of SW_RING rows in
+//   shared memory: the occupancy plane first (coalesced, loaded into
+//   registers one row ahead) into a bit mask per cell; then only the live
+//   slots' x, y, vx, vy, m, compacted cell by cell in slot order. An empty
+//   slot is never read beyond its occupancy, so what it holds never
+//   reaches a sum.
+// - Density runs one row ahead (row q-1 once row q is staged), over the
+//   tile and one halo column each side, into a ring of SW_RHO_RING rows in
+//   shared memory with the particle's pressure term; the band recomputes
+//   one halo row above and below. Forces for row q-2 then read rho from
+//   the ring: no round trip through device memory, one launch. The band
+//   height trades blocks for halo work: a band stages SW_BAND + 4 rows and
+//   computes the density of SW_BAND + 2 for SW_BAND rows of forces; at 4
+//   rows DAM_BREAK 100k's 273 x 288 grid gives 9 x 69 = 621 blocks for the
+//   132 SMs (3 resident on each at K = 16).
+// - Threads take the row's live particles, not its slots, so warps run
+//   full. A block whose own cells hold no particle (most of a tank or dam:
+//   the TPU kernel skipped such slabs too) reads their occupancy once and
+//   writes zeros; a row with no particle costs its occupancy load and a
+//   zero store.
+// - Each particle sums its pairs in (dy, dx, slot) order through
+//   sph_pair.cuh's pair functions, as the split density and force kernels
+//   do: the results equal density + EOS + force to the bit.
+//   A cell's 3x3 neighbourhood in a staged row is one contiguous run of
+//   entries (cells l-1 .. l+1), already in (dx, slot) order. The force
+//   loop first marks the run's neighbours within h (~1/3 of them; r^2 by
+//   the same separation()) and spends the costly term (a sqrt and
+//   three IEEE divides) on those alone. Outputs go through shared memory
+//   to coalesced stores.
 #include "sph_pair.cuh"
 
 namespace {
 
-__device__ __forceinline__ PairPlanes m9_planes(const float* m9,
-                                                const SweepParams& P) {
-  const size_t plane = (size_t)P.K * P.W;
-  return {m9 + M9_X * plane,  m9 + M9_Y * plane, m9 + M9_VX * plane,
-          m9 + M9_VY * plane, m9 + M9_M * plane, m9 + M9_OCC * plane,
-          9 * plane};
+constexpr int SW_TILE = 32;              // output columns of a block
+constexpr int SW_BAND = 4;               // interior rows of a block
+constexpr int SW_WIN = SW_TILE + 4;      // staged columns: two halo a side
+constexpr int SW_RING = 4;               // staged particle rows
+constexpr int SW_RHO_RING = 3;           // rows of density kept
+constexpr int SW_THREADS = 256;
+constexpr int SW_PART = 5;               // staged planes: x, y, vx, vy, m
+constexpr int SW_OCC = 5;                // occupancies a thread holds
+static_assert(32 * SW_WIN <= SW_OCC * SW_THREADS, "a row's window at K=32");
+
+// Bytes of shared memory of a block: floats part[RING][5][E],
+// rho[RHO_RING][2][E], out[3][K][TILE], then unsigned mask[RING][WIN], int
+// start[RING][WIN + 1], then bytes slot[RING][E], cell[RING][E], with E =
+// K * WIN entries a row (71,824 bytes at K = 16).
+constexpr int sweep_smem(int K) {
+  return 4 * (SW_RING * SW_PART * K * SW_WIN + SW_RHO_RING * 2 * K * SW_WIN +
+              3 * K * SW_TILE + SW_RING * SW_WIN + SW_RING * (SW_WIN + 1)) +
+         2 * SW_RING * K * SW_WIN;
 }
+// the most a block may have on Hopper (227 KB), at the largest K
+static_assert(sweep_smem(32) <= 232448, "shared memory at K = 32");
+
+__device__ __forceinline__ int ring(int q) { return (q + SW_RING) % SW_RING; }
 
 }  // namespace
 
-__global__ void density_kernel(const float* __restrict__ m9,
-                               float* __restrict__ rho, SweepParams P) {
-  long idx;
-  int p, k, c;
-  if (!pair_slot(P, idx, p, k, c)) return;
-  rho[idx] = pair_density(m9_planes(m9, P), p, k, c, P);
-}
+// grid: (column tiles, bands of SW_BAND interior rows); SW_THREADS threads.
+__global__ void __launch_bounds__(SW_THREADS)
+    sweep_kernel(const float* __restrict__ m9, float* __restrict__ rho_o,
+                 float* __restrict__ fx_o, float* __restrict__ fy_o,
+                 SweepParams P) {
+  extern __shared__ __align__(16) float sm[];
+  const int K = P.K, W = P.W, ny = P.rows - 2;
+  const int E = K * SW_WIN;
+  float* part = sm;                                   // [RING][5][E]
+  float* rhor = part + SW_RING * SW_PART * E;         // [RHO_RING][2][E]
+  float* sout = rhor + SW_RHO_RING * 2 * E;           // [3][K][TILE]
+  unsigned* mask = reinterpret_cast<unsigned*>(sout + 3 * K * SW_TILE);
+  int* start = reinterpret_cast<int*>(mask + SW_RING * SW_WIN);
+  unsigned char* sslot =
+      reinterpret_cast<unsigned char*>(start + SW_RING * (SW_WIN + 1));
+  unsigned char* scell = sslot + SW_RING * E;
 
-__global__ void force_kernel(const float* __restrict__ m9,
-                             const float* __restrict__ rho,
-                             float* __restrict__ fx_out,
-                             float* __restrict__ fy_out, SweepParams P) {
-  long idx;
-  int p, k, c;
-  if (!pair_slot(P, idx, p, k, c)) return;
-  // rho holds the interior rows only: grid row p is its row p - 1
-  pair_force<true>(m9_planes(m9, P), rho, nullptr, (size_t)P.K * P.W, 1, p,
-                   k, c, P, fx_out[idx], fy_out[idx]);
+  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31;
+  const int c0 = blockIdx.x * SW_TILE;                // first tile column
+  const int cw = c0 - 2;                              // window column 0
+  const int p0 = 1 + blockIdx.y * SW_BAND;
+  const int p1 = min(p0 + SW_BAND, ny + 1);           // band rows [p0, p1)
+  const size_t plane = (size_t)K * W;
+  const size_t rs = 9 * plane;
+  auto X = [&](int r, int f) { return part + (r * SW_PART + f) * E; };
+
+  // a block whose own cells hold no particle has only zeros to write
+  const int nout = (p1 - p0) * K * SW_TILE;      // (row, slot, column)
+  bool any = false;
+  for (int i = tid; i < nout; i += nthr) {
+    const int r = i / (K * SW_TILE), k = (i / SW_TILE) % K;
+    const int c = c0 + i % SW_TILE;
+    if (c < W && m9[(size_t)(p0 + r) * rs + M9_OCC * plane +
+                    (size_t)k * W + c] > 0.f)
+      any = true;                                 // loads stay independent
+  }
+  if (!__syncthreads_or(any)) {
+    for (int i = tid; i < nout; i += nthr) {
+      const int r = i / (K * SW_TILE), k = (i / SW_TILE) % K;
+      const int c = c0 + i % SW_TILE;
+      if (c >= W) continue;
+      const size_t at = (size_t)(p0 + r - 1) * plane + (size_t)k * W + c;
+      rho_o[at] = fx_o[at] = fy_o[at] = 0.f;
+    }
+    return;
+  }
+
+  // the occupancy of a row's window in registers (element i = tid + e *
+  // nthr: slot i / WIN of window cell i % WIN), loaded one row ahead so the
+  // load is in flight while the block computes
+  float ro[SW_OCC];
+  auto load_occ = [&](int q) {
+    const bool in = q >= 0 && q < P.rows;
+#pragma unroll
+    for (int e = 0; e < SW_OCC; ++e) {
+      const int i = tid + e * nthr;
+      const int k = i / SW_WIN, c = cw + i - k * SW_WIN;
+      ro[e] = 0.f;
+      if (in && k < K && c >= 0 && c < W)
+        ro[e] = m9[(size_t)q * rs + M9_OCC * plane + (size_t)k * W + c];
+    }
+  };
+  load_occ(p0 - 2);
+  for (int i = tid; i < SW_RING * SW_WIN; i += nthr) mask[i] = 0u;
+  __syncthreads();
+
+  for (int q = p0 - 2; q <= p1 + 1; ++q) {
+    // 1. stage row q: occupancy bits per window cell (its ring slot was
+    // zeroed while row q-1 was staged)
+    const int rq = ring(q);
+    unsigned* mq = mask + rq * SW_WIN;
+    const bool row_in = q >= 0 && q < P.rows;
+#pragma unroll
+    for (int e = 0; e < SW_OCC; ++e)
+      if (ro[e] > 0.f) {
+        const int i = tid + e * nthr;
+        const int k = i / SW_WIN;
+        atomicOr(&mq[i - k * SW_WIN], 1u << k);
+      }
+    __syncthreads();
+    // 2. every warp scans the cells' live counts (two cells a lane): a
+    // cell's entries start at the exclusive prefix; warp 0 records it
+    const int l0 = 2 * lane, l1 = 2 * lane + 1;
+    const int na = l0 < SW_WIN ? __popc(mq[l0]) : 0;
+    const int nb = l1 < SW_WIN ? __popc(mq[l1]) : 0;
+    int incl = na + nb;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const int excl = incl - na - nb;
+    if (tid < 32) {
+      int* sq = start + rq * (SW_WIN + 1);
+      if (l0 < SW_WIN) sq[l0] = excl;
+      if (l1 < SW_WIN) sq[l1] = excl + na;
+      if (lane == 31) sq[SW_WIN] = incl;
+    }
+    // 3. the live slots' planes, compacted cell by cell in slot order
+    const float* g = m9 + (size_t)q * rs;
+    for (int i0 = 0; i0 < K * SW_WIN; i0 += nthr) {
+      const int i = i0 + tid;
+      const int k = i / SW_WIN, l = i - k * SW_WIN, c = cw + l;
+      const int src = l >> 1;                   // every lane shuffles
+      const int ex = __shfl_sync(0xffffffffu, excl, src);
+      const int n0 = __shfl_sync(0xffffffffu, na, src);
+      if (!row_in || k >= K || c < 0 || c >= W) continue;
+      const unsigned bits = mq[l];
+      if (!((bits >> k) & 1u)) continue;
+      const int e = ex + ((l & 1) ? n0 : 0) + __popc(bits & ((1u << k) - 1u));
+      const size_t at = (size_t)k * W + c;
+      X(rq, 0)[e] = g[M9_X * plane + at];
+      X(rq, 1)[e] = g[M9_Y * plane + at];
+      X(rq, 2)[e] = g[M9_VX * plane + at];
+      X(rq, 3)[e] = g[M9_VY * plane + at];
+      X(rq, 4)[e] = g[M9_M * plane + at];
+      sslot[rq * E + e] = (unsigned char)k;
+      scell[rq * E + e] = (unsigned char)l;
+    }
+    // row q-3's mask, last read by the previous row's output pass
+    for (int i = tid; i < SW_WIN; i += nthr)
+      mask[ring(q + 1) * SW_WIN + i] = 0u;
+    if (q <= p1) load_occ(q + 1);
+    __syncthreads();
+
+    // 4. density of row d = q-1 in window cells 1 .. WIN-2
+    const int d = q - 1;
+    if (d >= p0 - 1 && d >= 1 && d <= ny) {
+      const int rd = ring(d);
+      const int* sd = start + rd * (SW_WIN + 1);
+      float* rho_d = rhor + (d % SW_RHO_RING) * 2 * E;
+      for (int i = sd[1] + tid; i < sd[SW_WIN - 1]; i += nthr) {
+        const int l = scell[rd * E + i];
+        const float cx = X(rd, 0)[i], cy = X(rd, 1)[i];
+        float acc = 0.f;
+        for (int dy = -1; dy <= 1; ++dy) {
+          const int rn = ring(d + dy);
+          const int* sn = start + rn * (SW_WIN + 1);
+          const float *nx = X(rn, 0), *ny_ = X(rn, 1), *nm = X(rn, 4);
+          const int j1 = sn[l + 2];
+#pragma unroll 4
+          for (int j = sn[l - 1]; j < j1; ++j) {
+            bool ok;
+            const float t =
+                density_term(ok, separation(cx, cy, nx[j], ny_[j]), nm[j], P);
+            if (ok) acc = acc + t;
+          }
+        }
+        rho_d[i] = acc;
+        rho_d[E + i] =
+            pressure_term(eos(acc, P.stiffness, P.rest_density), acc);
+      }
+    }
+    __syncthreads();
+
+    // 5. forces of row f = q-2 in the tile's cells 2 .. WIN-3, then the
+    // row's outputs, 0 in empty slots
+    const int f = q - 2;
+    if (f < p0) continue;
+    const int rf = ring(f);
+    const int* sf = start + rf * (SW_WIN + 1);
+    for (int i = sf[2] + tid; i < sf[SW_WIN - 2]; i += nthr) {
+      const int l = scell[rf * E + i];
+      const float cx = X(rf, 0)[i], cy = X(rf, 1)[i];
+      const float cvx = X(rf, 2)[i], cvy = X(rf, 3)[i];
+      const float* rho_f = rhor + (f % SW_RHO_RING) * 2 * E;
+      const float crho = rho_f[i];
+      const float cterm = rho_f[E + i];
+      const bool crho_ok = crho >= P.min_rho;
+      float fxa = 0.f, fya = 0.f;
+      for (int dy = -1; dy <= 1; ++dy) {
+        const int rowi = f + dy;
+        if (rowi < 1 || rowi > ny) continue;   // aprons hold no particles
+        const int rn = ring(rowi);
+        const int* sn = start + rn * (SW_WIN + 1);
+        const float* nr = rhor + (rowi % SW_RHO_RING) * 2 * E;
+        const float *nx = X(rn, 0), *ny_ = X(rn, 1);
+        const int j1 = sn[l + 2];
+        for (int b = sn[l - 1]; b < j1; b += 32) {
+          // the neighbours within h of entries b .. b+31, self excluded
+          const int n = min(32, j1 - b);
+          unsigned near = 0u;
+          for (int u = 0; u < n; ++u)
+            near |= (unsigned)(separation(cx, cy, nx[b + u], ny_[b + u]).r2 <
+                               P.h2)
+                    << u;
+          if (dy == 0 && i >= b && i < b + 32) near &= ~(1u << (i - b));
+          while (near) {
+            const int j = b + __ffs(near) - 1;
+            near &= near - 1u;
+            const Sep sp = separation(cx, cy, nx[j], ny_[j]);
+            if (!force_counts(sp, nr[j], crho_ok, P)) continue;
+            float gx, gy;
+            force_term(gx, gy, sp, cvx, cvy, cterm, X(rn, 2)[j], X(rn, 3)[j],
+                       X(rn, 4)[j], nr[j], nr[E + j], P);
+            fxa = fxa + gx;
+            fya = fya + gy;
+          }
+        }
+      }
+      const int o = sslot[rf * E + i] * SW_TILE + (l - 2);
+      sout[o] = crho;
+      sout[K * SW_TILE + o] = fxa;
+      sout[2 * K * SW_TILE + o] = fya;
+    }
+    __syncthreads();
+    const unsigned* mf = mask + rf * SW_WIN;
+    const size_t orow = (size_t)(f - 1) * plane;
+    for (int i = tid; i < K * SW_TILE; i += nthr) {
+      const int k = i / SW_TILE, t = i - k * SW_TILE, c = c0 + t;
+      if (c >= W) continue;
+      const bool live = (mf[t + 2] >> k) & 1u;
+      const size_t at = orow + (size_t)k * W + c;
+      rho_o[at] = live ? sout[i] : 0.f;
+      fx_o[at] = live ? sout[K * SW_TILE + i] : 0.f;
+      fy_o[at] = live ? sout[2 * K * SW_TILE + i] : 0.f;
+    }
+  }
 }
 
 LPE_EXPORT int lpe_pair_sweep(const float* m9, float* rho, float* fx,
                               float* fy, cudaStream_t stream,
                               const SweepParams* P) {
-  const unsigned grid = pair_grid(P);
-  density_kernel<<<grid, PAIR_BLOCK, 0, stream>>>(m9, rho, *P);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  force_kernel<<<grid, PAIR_BLOCK, 0, stream>>>(m9, rho, fx, fy, *P);
+  if (P->K < 1 || P->K > 32 || P->rows < 3 || P->W < 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = sweep_smem(P->K);
+  static int smem_set = 0;      // the largest dynamic size allowed so far
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  const int ny = P->rows - 2;
+  const dim3 grid((P->W + SW_TILE - 1) / SW_TILE,
+                  (ny + SW_BAND - 1) / SW_BAND);
+  sweep_kernel<<<grid, SW_THREADS, smem, stream>>>(m9, rho, fx, fy, *P);
   return (int)cudaGetLastError();
 }

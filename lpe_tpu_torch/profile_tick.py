@@ -38,7 +38,7 @@ BLOCK = 10
 DAM_N = 100_000
 RIGID_N = 10_000
 BLOCKS, RUNS, TOP = 5, 3, 8
-PORT_KERNELS = ("migrate_kernel", "density_kernel", "force_kernel",
+PORT_KERNELS = ("migrate_kernel", "sweep_kernel",
                 "coupling9_kernel", "split_density_kernel",
                 "split_force_kernel", "coupling_kernel", "narrowphase_kernel")
 DAM_FLUID = {   # scene name -> FluidConfig fields of that dam configuration

@@ -269,6 +269,79 @@ def test_cuda_split_kernels_match_plain():
         SK.density(d8, **dkw)
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, cols", [
+    (ROWS, W),      # two whole bands of 4 rows; four 32-column tiles
+    (9, 45),        # a short last band (7 = 4 + 3 rows) and a short tile
+    (5, 20),        # fewer interior rows than a band; one short tile
+])
+def test_cuda_sweep_and_coupling9_equal_their_twins(rows, cols):
+    """The pair sweep against density + EOS + force, and coupling9 against
+    coupling on the same sub-step, to the bit: each pair of kernels shares
+    its arithmetic and its summation order. With NaN in x, y, vx, vy and m
+    of every empty slot, rho, fx, fy, PL and bigp keep their bits. The
+    seeded grid is cut to ``rows`` x ``cols`` (its last row emptied as the
+    apron)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    pad = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
+    st = np.ascontiguousarray(_make_st()[:rows, ..., :cols])
+    st[-1] = 0.0
+    m9 = SK.migrate(torch.from_numpy(st).cuda(), **MIG)
+    x, y, vx, vy, m, occ, hx, hy, pid = m9.unbind(1)
+    sw = SK.pair_sweep(m9, **SWEEP)
+    rho_p = pad(SK.density(torch.stack([x, y, m, occ], 1), h=H,
+                           poly6=SWEEP["poly6"]))
+    pres = torch.clamp(FC.stiffness * (rho_p - FC.rest_density), min=0.0)
+    fkw = {k: SWEEP[k] for k in ("h", "spiky", "visc_lap", "viscosity",
+                                 "min_d2", "min_rho")}
+    fx, fy = SK.force(torch.stack([x, y, vx, vy, m, rho_p, pres, occ], 1),
+                      **fkw)
+    for u, v in zip(sw, (rho_p[1:-1], fx, fy)):
+        assert torch.equal(_bits(u), _bits(v))
+    assert float(sw[1].abs().max()) > 0
+
+    small, wall = _rigids()
+    fld = torch.from_numpy(np.ascontiguousarray(
+        _raster(small)[0][:rows, ..., :cols])).cuda()
+    big = torch.from_numpy(np.concatenate(
+        [wall, np.zeros((1, WP), np.float32)])).cuda()
+    cn = dict(_cn(), V=V, half_dt=HALF_DT, stiffness=FC.stiffness)
+    ax, ay = pad(sw[1]), pad(sw[2])
+    rp = pad(sw[0])
+    pe = torch.clamp(FC.stiffness * (rp - FC.rest_density), min=0.0)
+    d10 = torch.stack([x, y, hx + HALF_DT * ax, hy + HALF_DT * ay, rp, pe, m,
+                       occ, ax, ay], 1)
+    coupled = (occ.sum(1) > 0).to(torch.int32).contiguous()
+    m9n = m9.clone()
+    empty = m9n[:, SK.M9_OCC] <= 0
+    for f in (SK.M9_X, SK.M9_Y, SK.M9_VX, SK.M9_VY, SK.M9_M):
+        m9n[:, f][empty] = float("nan")
+    swn = SK.pair_sweep(m9n, **SWEEP)
+    for u, v in zip(swn, sw):
+        assert torch.equal(_bits(u), _bits(v))
+    for cpl in (coupled, torch.zeros_like(coupled)):   # coupled; copied
+        st, pl, bigp = SK.coupling9(cpl, fld, big, m9, *sw, cn=cn)
+        out = SK.coupling(cpl, fld, big, d10, cn=cn)
+        ref = torch.stack([*out[:6], m, pid, occ], 1)
+        ref[0] = ref[-1] = 0.0
+        for u, v in ((st, ref), (pl, out[6]), (bigp, out[7])):
+            assert torch.equal(_bits(u), _bits(v))
+        st_n, pl_n, bigp_n = SK.coupling9(cpl, fld, big, m9n, *swn, cn=cn)
+        assert torch.equal(_bits(pl_n), _bits(pl))
+        assert torch.equal(_bits(bigp_n), _bits(bigp))
+        keep = torch.ones_like(st, dtype=torch.bool)
+        for f in (SK.ST_X, SK.ST_Y, SK.ST_M):    # copied through as NaN
+            keep[1:-1, f] = ~empty[1:-1]
+        assert torch.equal(_bits(st_n[keep]), _bits(st[keep]))
+        assert bool(torch.isnan(st_n[~keep]).all())
+    assert float(pl.abs().max()) == 0.0          # copied-through cells
+
+
 def test_fluid_config_tree_is_the_one_tested():
     # the constants above come from the port's default FluidConfig
     assert dataclasses.asdict(FC)["grid"]["max_per_cell"] == K
