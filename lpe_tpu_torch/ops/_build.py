@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("common.cuh", "sph_pair.cuh", "couple.cuh", "migrate.cu",
+SOURCES = ("common.cuh", "sph_pair.cuh", "stage.cuh", "couple.cuh",
+           "migrate.cu",
            "pair_sweep.cu", "coupling9.cu", "narrowphase.cu", "density.cu",
            "force.cu", "coupling.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lpe_tpu_torch"

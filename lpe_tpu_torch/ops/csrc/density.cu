@@ -19,8 +19,8 @@ __global__ void split_density_kernel(const float* __restrict__ d4,
   int p, k, c;
   if (!pair_slot(P, idx, p, k, c)) return;
   const size_t plane = (size_t)P.K * P.W;
-  const PairPlanes g = {d4,      d4 + plane,     nullptr, nullptr,
-                        d4 + 2 * plane, d4 + 3 * plane, 4 * plane};
+  const PairPlanes g = {d4, d4 + plane, d4 + 2 * plane, d4 + 3 * plane,
+                        4 * plane};
   rho[idx] = pair_density(g, p, k, c, P);
 }
 

@@ -25,9 +25,9 @@
 //   tile plus two halo columns each side) into a ring of SW_RING rows in
 //   shared memory: the occupancy plane first (coalesced, loaded into
 //   registers one row ahead) into a bit mask per cell; then only the live
-//   slots' x, y, vx, vy, m, compacted cell by cell in slot order. An empty
-//   slot is never read beyond its occupancy, so what it holds never
-//   reaches a sum.
+//   slots' x, y, vx, vy, m, compacted cell by cell in slot order
+//   (stage.cuh, which force.cu and migrate.cu share). An empty slot is
+//   never read beyond its occupancy, so what it holds never reaches a sum.
 // - Density runs one row ahead (row q-1 once row q is staged), over the
 //   tile and one halo column each side, into a ring of SW_RHO_RING rows in
 //   shared memory with the particle's pressure term; the band recomputes
@@ -47,11 +47,13 @@
 //   do: the results equal density + EOS + force to the bit.
 //   A cell's 3x3 neighbourhood in a staged row is one contiguous run of
 //   entries (cells l-1 .. l+1), already in (dx, slot) order. The force
-//   loop first marks the run's neighbours within h (~1/3 of them; r^2 by
-//   the same separation()) and spends the costly term (a sqrt and
-//   three IEEE divides) on those alone. Outputs go through shared memory
-//   to coalesced stores.
+//   loop (sph_pair.cuh staged_row_force, which force.cu shares) first
+//   marks the run's neighbours within h (~1/3 of them; r^2 by the same
+//   separation()) and spends the costly term (a sqrt and three IEEE
+//   divides) on those alone. Outputs go through shared memory to
+//   coalesced stores.
 #include "sph_pair.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -98,7 +100,7 @@ __global__ void __launch_bounds__(SW_THREADS)
       reinterpret_cast<unsigned char*>(start + SW_RING * (SW_WIN + 1));
   unsigned char* scell = sslot + SW_RING * E;
 
-  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31;
+  const int tid = threadIdx.x, nthr = blockDim.x;
   const int c0 = blockIdx.x * SW_TILE;                // first tile column
   const int cw = c0 - 2;                              // window column 0
   const int p0 = 1 + blockIdx.y * SW_BAND;
@@ -108,17 +110,9 @@ __global__ void __launch_bounds__(SW_THREADS)
   auto X = [&](int r, int f) { return part + (r * SW_PART + f) * E; };
 
   // a block whose own cells hold no particle has only zeros to write
-  const int nout = (p1 - p0) * K * SW_TILE;      // (row, slot, column)
-  bool any = false;
-  for (int i = tid; i < nout; i += nthr) {
-    const int r = i / (K * SW_TILE), k = (i / SW_TILE) % K;
-    const int c = c0 + i % SW_TILE;
-    if (c < W && m9[(size_t)(p0 + r) * rs + M9_OCC * plane +
-                    (size_t)k * W + c] > 0.f)
-      any = true;                                 // loads stay independent
-  }
-  if (!__syncthreads_or(any)) {
-    for (int i = tid; i < nout; i += nthr) {
+  const float* occ = m9 + M9_OCC * plane;
+  if (!block_any_live<SW_TILE>(occ, rs, p0, p1, K, W, c0)) {
+    for (int i = tid; i < (p1 - p0) * K * SW_TILE; i += nthr) {
       const int r = i / (K * SW_TILE), k = (i / SW_TILE) % K;
       const int c = c0 + i % SW_TILE;
       if (c >= W) continue;
@@ -128,20 +122,10 @@ __global__ void __launch_bounds__(SW_THREADS)
     return;
   }
 
-  // the occupancy of a row's window in registers (element i = tid + e *
-  // nthr: slot i / WIN of window cell i % WIN), loaded one row ahead so the
-  // load is in flight while the block computes
-  float ro[SW_OCC];
+  // the occupancy of a row's window, loaded one row ahead (stage.cuh)
+  RowOcc<SW_WIN, SW_OCC> ro;
   auto load_occ = [&](int q) {
-    const bool in = q >= 0 && q < P.rows;
-#pragma unroll
-    for (int e = 0; e < SW_OCC; ++e) {
-      const int i = tid + e * nthr;
-      const int k = i / SW_WIN, c = cw + i - k * SW_WIN;
-      ro[e] = 0.f;
-      if (in && k < K && c >= 0 && c < W)
-        ro[e] = m9[(size_t)q * rs + M9_OCC * plane + (size_t)k * W + c];
-    }
+    ro.load(q >= 0 && q < P.rows ? occ + q * rs : nullptr, K, W, cw);
   };
   load_occ(p0 - 2);
   for (int i = tid; i < SW_RING * SW_WIN; i += nthr) mask[i] = 0u;
@@ -152,53 +136,20 @@ __global__ void __launch_bounds__(SW_THREADS)
     // zeroed while row q-1 was staged)
     const int rq = ring(q);
     unsigned* mq = mask + rq * SW_WIN;
-    const bool row_in = q >= 0 && q < P.rows;
-#pragma unroll
-    for (int e = 0; e < SW_OCC; ++e)
-      if (ro[e] > 0.f) {
-        const int i = tid + e * nthr;
-        const int k = i / SW_WIN;
-        atomicOr(&mq[i - k * SW_WIN], 1u << k);
-      }
+    ro.to_mask(mq);
     __syncthreads();
-    // 2. every warp scans the cells' live counts (two cells a lane): a
-    // cell's entries start at the exclusive prefix; warp 0 records it
-    const int l0 = 2 * lane, l1 = 2 * lane + 1;
-    const int na = l0 < SW_WIN ? __popc(mq[l0]) : 0;
-    const int nb = l1 < SW_WIN ? __popc(mq[l1]) : 0;
-    int incl = na + nb;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += v;
-    }
-    const int excl = incl - na - nb;
-    if (tid < 32) {
-      int* sq = start + rq * (SW_WIN + 1);
-      if (l0 < SW_WIN) sq[l0] = excl;
-      if (l1 < SW_WIN) sq[l1] = excl + na;
-      if (lane == 31) sq[SW_WIN] = incl;
-    }
-    // 3. the live slots' planes, compacted cell by cell in slot order
-    const float* g = m9 + (size_t)q * rs;
-    for (int i0 = 0; i0 < K * SW_WIN; i0 += nthr) {
-      const int i = i0 + tid;
-      const int k = i / SW_WIN, l = i - k * SW_WIN, c = cw + l;
-      const int src = l >> 1;                   // every lane shuffles
-      const int ex = __shfl_sync(0xffffffffu, excl, src);
-      const int n0 = __shfl_sync(0xffffffffu, na, src);
-      if (!row_in || k >= K || c < 0 || c >= W) continue;
-      const unsigned bits = mq[l];
-      if (!((bits >> k) & 1u)) continue;
-      const int e = ex + ((l & 1) ? n0 : 0) + __popc(bits & ((1u << k) - 1u));
-      const size_t at = (size_t)k * W + c;
-      X(rq, 0)[e] = g[M9_X * plane + at];
-      X(rq, 1)[e] = g[M9_Y * plane + at];
-      X(rq, 2)[e] = g[M9_VX * plane + at];
-      X(rq, 3)[e] = g[M9_VY * plane + at];
-      X(rq, 4)[e] = g[M9_M * plane + at];
+    // 2.-3. the live slots' planes, compacted cell by cell in slot order
+    const RowScan s = stage_scan<SW_WIN>(mq, start + rq * (SW_WIN + 1));
+    stage_live<SW_WIN>(mq, s, K, cw, [&](int e, int k, int l, int c) {
+      const float* g = m9 + q * rs + (size_t)k * W + c;
+      X(rq, 0)[e] = g[M9_X * plane];
+      X(rq, 1)[e] = g[M9_Y * plane];
+      X(rq, 2)[e] = g[M9_VX * plane];
+      X(rq, 3)[e] = g[M9_VY * plane];
+      X(rq, 4)[e] = g[M9_M * plane];
       sslot[rq * E + e] = (unsigned char)k;
       scell[rq * E + e] = (unsigned char)l;
-    }
+    });
     // row q-3's mask, last read by the previous row's output pass
     for (int i = tid; i < SW_WIN; i += nthr)
       mask[ring(q + 1) * SW_WIN + i] = 0u;
@@ -256,29 +207,10 @@ __global__ void __launch_bounds__(SW_THREADS)
         const int rn = ring(rowi);
         const int* sn = start + rn * (SW_WIN + 1);
         const float* nr = rhor + (rowi % SW_RHO_RING) * 2 * E;
-        const float *nx = X(rn, 0), *ny_ = X(rn, 1);
-        const int j1 = sn[l + 2];
-        for (int b = sn[l - 1]; b < j1; b += 32) {
-          // the neighbours within h of entries b .. b+31, self excluded
-          const int n = min(32, j1 - b);
-          unsigned near = 0u;
-          for (int u = 0; u < n; ++u)
-            near |= (unsigned)(separation(cx, cy, nx[b + u], ny_[b + u]).r2 <
-                               P.h2)
-                    << u;
-          if (dy == 0 && i >= b && i < b + 32) near &= ~(1u << (i - b));
-          while (near) {
-            const int j = b + __ffs(near) - 1;
-            near &= near - 1u;
-            const Sep sp = separation(cx, cy, nx[j], ny_[j]);
-            if (!force_counts(sp, nr[j], crho_ok, P)) continue;
-            float gx, gy;
-            force_term(gx, gy, sp, cvx, cvy, cterm, X(rn, 2)[j], X(rn, 3)[j],
-                       X(rn, 4)[j], nr[j], nr[E + j], P);
-            fxa = fxa + gx;
-            fya = fya + gy;
-          }
-        }
+        const StagedRow r = {X(rn, 0), X(rn, 1), X(rn, 2), X(rn, 3),
+                             X(rn, 4), nr, nr + E, sn};
+        staged_row_force(fxa, fya, r, l, dy == 0 ? i : -1, cx, cy, cvx, cvy,
+                         cterm, crho_ok, P);
       }
       const int o = sslot[rf * E + i] * SW_TILE + (l - 2);
       sout[o] = crho;

@@ -6,9 +6,10 @@
 // summed in the fixed order (dy, dx, slot). The arithmetic of one pair is
 // the functions below (separation, density_term; force_counts, force_term),
 // and every kernel sums their terms in that order, so one input gives one
-// bitwise result, whichever kernel asks. The split kernels walk the slots
-// of the padded grid (pair_density, pair_force); the pair sweep walks the
-// live slots it staged in shared memory.
+// bitwise result, whichever kernel asks. The split density kernel walks
+// the slots of the padded grid (pair_density); the pair sweep and the
+// split force kernel walk the live slots they staged in shared memory
+// (stage.cuh), and share their force loop (staged_row_force).
 #pragma once
 
 #include "common.cuh"
@@ -16,7 +17,7 @@
 // Particle planes of one row stack [rows, F, K, W]: each pointer is its
 // plane at grid row 0; ``rs`` floats lie between consecutive rows.
 struct PairPlanes {
-  const float *x, *y, *vx, *vy, *m, *occ;
+  const float *x, *y, *m, *occ;
   size_t rs;
 };
 
@@ -81,6 +82,47 @@ __device__ __forceinline__ void force_term(float& gx, float& gy,
   gy = gy - f_visc * (cvy - nvy);
 }
 
+// One staged row of live particles (stage.cuh): their planes by entry and
+// the entry where each window cell starts. The neighbours that a particle
+// of window cell l has in the row are the entries start[l - 1] ..
+// start[l + 2] - 1, in (dx, slot) order.
+struct StagedRow {
+  const float *x, *y, *vx, *vy, *m, *rho, *term;   // term: pressure_term
+  const int* start;
+};
+
+// Add the pair forces on a staged particle (position cx, cy; velocity cvx,
+// cvy; pressure term cterm; its density reaches min_rho: crho_ok) from its
+// neighbours in row r, in entry order, leaving out entry ``self`` (the
+// particle itself, or -1). The neighbours within h are marked first (r^2 by
+// the same separation()); only those pay the costly term, a sqrt and three
+// IEEE divides.
+__device__ __forceinline__ void staged_row_force(
+    float& fxa, float& fya, const StagedRow& r, int l, int self, float cx,
+    float cy, float cvx, float cvy, float cterm, bool crho_ok,
+    const SweepParams& P) {
+  const int j1 = r.start[l + 2];
+  for (int b = r.start[l - 1]; b < j1; b += 32) {
+    const int n = min(32, j1 - b);
+    unsigned near = 0u;
+    for (int u = 0; u < n; ++u)
+      near |= (unsigned)(separation(cx, cy, r.x[b + u], r.y[b + u]).r2 < P.h2)
+              << u;
+    if (self >= b && self < b + 32) near &= ~(1u << (self - b));
+    while (near) {
+      const int j = b + __ffs(near) - 1;
+      near &= near - 1u;
+      const Sep sp = separation(cx, cy, r.x[j], r.y[j]);
+      if (!force_counts(sp, r.rho[j], crho_ok, P)) continue;
+      float gx, gy;
+      force_term(gx, gy, sp, cvx, cvy, cterm, r.vx[j], r.vy[j], r.m[j],
+                 r.rho[j], r.term[j], P);
+      fxa = fxa + gx;
+      fya = fya + gy;
+    }
+  }
+}
+
 // Poly6 density at slot (p, k, c), self term included; 0 for an empty slot.
 // Neighbour rows p-1 and p+1 must exist (p is an interior row).
 __device__ __forceinline__ float pair_density(const PairPlanes& g, int p,
@@ -109,58 +151,6 @@ __device__ __forceinline__ float pair_density(const PairPlanes& g, int p,
     }
   }
   return acc;
-}
-
-// Symmetric spiky pressure force and viscosity-Laplacian force at slot
-// (p, k, c), self pair excluded, gated by min_d2, h2 and min_rho on both
-// sides. The density and pressure of slot (p', k', c') are rho and pres at
-// (p' - rho_row0) * rho_rs + k' * W + c'. Rows outside 1..ny hold no
-// particles and are not read.
-__device__ __forceinline__ void pair_force(const PairPlanes& g,
-                                           const float* __restrict__ rho,
-                                           const float* __restrict__ pres,
-                                           size_t rho_rs, int rho_row0, int p,
-                                           int k, int c, const SweepParams& P,
-                                           float& fx_out, float& fy_out) {
-  const int K = P.K, W = P.W, ny = P.rows - 2;
-  const size_t at = (size_t)p * g.rs + (size_t)k * W + c;
-  float fxa = 0.f, fya = 0.f;
-  if (g.occ[at] > 0.f) {
-    const float cx = g.x[at];
-    const float cy = g.y[at];
-    const float cvx = g.vx[at];
-    const float cvy = g.vy[at];
-    const size_t cat = (size_t)(p - rho_row0) * rho_rs + (size_t)k * W + c;
-    const float crho = rho[cat];
-    const float cterm = pressure_term(pres[cat], crho);
-    const bool crho_ok = crho >= P.min_rho;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int np_ = p + dy;
-      if (np_ < 1 || np_ > ny) continue;   // aprons hold no particles
-      for (int dx = -1; dx <= 1; ++dx) {
-        const int nc = c + dx;
-        if (nc < 0 || nc >= W) continue;
-        const size_t nb = (size_t)np_ * g.rs + nc;
-        const size_t nrho_row = (size_t)(np_ - rho_row0) * rho_rs + nc;
-        for (int k2 = 0; k2 < K; ++k2) {
-          if (dy == 0 && dx == 0 && k2 == k) continue;   // self pair
-          const size_t q = nb + (size_t)k2 * W;
-          if (!(g.occ[q] > 0.f)) continue;
-          const Sep sp = separation(cx, cy, g.x[q], g.y[q]);
-          const size_t qr = nrho_row + (size_t)k2 * W;
-          const float nrho = rho[qr];
-          if (!force_counts(sp, nrho, crho_ok, P)) continue;
-          float gx, gy;
-          force_term(gx, gy, sp, cvx, cvy, cterm, g.vx[q], g.vy[q], g.m[q],
-                     nrho, pressure_term(pres[qr], nrho), P);
-          fxa = fxa + gx;
-          fya = fya + gy;
-        }
-      }
-    }
-  }
-  fx_out = fxa;
-  fy_out = fya;
 }
 
 // The split kernels' layout: one thread per (interior row, slot, column),

@@ -36,6 +36,12 @@ SWEEP = dict(h=H, poly6=4.0 / (np.pi * H ** 8),
              min_d2=FC.numerical.min_distance_threshold,
              min_rho=FC.numerical.min_density_threshold,
              stiffness=FC.stiffness, rest_density=FC.rest_density)
+# the multi-block grid of _crowded_st: 3 tiles of 32 columns, the last of
+# 20; migrate's bands of 3 rows (apron rows included) 3 + 3 + 3 + 2, the
+# force pass's one interior row a block, the sweep's bands of 4 interior
+# rows 4 + 4 + 1; crowds on tile and band edges
+CROWD_ROWS, CROWD_COLS, CROWD_NX = 11, 84, 80
+CROWDS = ((4, 32), (3, 63), (8, 31), (5, 64))
 V = 4                                   # vertex ring of the test rigids
 WP = SK.rig_width(V)
 
@@ -77,6 +83,55 @@ def _make_st(seed=0):
     put(1, 1, 5.5 * CELL, 4.5 * CELL)        # 3 rows, 4 cols away
     put(7, 7, 0.5 * CELL, 0.5 * CELL)
     put(6, 1, 0.3 * CELL, 3.5 * CELL, vx=2.0)
+    return st
+
+
+def _crowded_st(K, seed=1, full=False):
+    """A seeded ST stack of CROWD_ROWS x CROWD_COLS over several blocks of
+    the staged kernels (32-column tiles and bands of rows; the last tile
+    and band short), columns past nx + 1 empty: cells of 1-6 particles, some
+    stored a cell away from their position; at target cells on tile and
+    band edges, crowds of more than K candidates fed across those edges;
+    with ``full``, a 3x3 block of full cells around a tile and band
+    corner."""
+    rng = np.random.default_rng(seed)
+    st = np.zeros((CROWD_ROWS, 9, K, CROWD_COLS), np.float32)
+    nxt = {}
+    pid = [0]
+
+    def put(r, c, u, v, vel=(0.0, 0.0), acc=(0.0, 0.0), at=None):
+        """A particle stored in padded cell (r, c) at the point (u, v) of
+        padded cell ``at`` (default: its own)."""
+        s = nxt.get((r, c), 0)
+        if s >= K:
+            return
+        nxt[(r, c)] = s + 1
+        pid[0] += 1
+        ar, ac = at or (r, c)
+        st[r, :, s, c] = ((ac - 3 + u) * CELL, (ar - 3 + v) * CELL, *vel,
+                          *acc, 0.005, pid[0], 1.0)
+
+    if full:
+        for r in (4, 5, 6):
+            for c in (31, 32, 33):
+                for _ in range(K):
+                    put(r, c, *rng.uniform(0.02, 0.98, 2))
+    for r, c in CROWDS:
+        for _ in range(K):
+            put(r, c, *rng.uniform(0.1, 0.9, 2))
+        for dr in (-1, 0, 1):
+            for dc in (-1, 0, 1):
+                for _ in range(2):
+                    put(r + dr, c + dc, *rng.uniform(0.1, 0.9, 2), at=(r, c))
+    put(4, 31, 0.5, 0.5, at=(6, 34))          # 2 rows, 3 columns away
+    put(7, 65, 0.5, 0.5, at=(9, 61))
+    for r in range(1, CROWD_ROWS - 1):
+        for c in range(1, CROWD_NX + 1):
+            if rng.uniform() < 0.35:
+                for _ in range(int(rng.integers(1, 7))):
+                    put(r, c, *rng.uniform(-0.3, 1.3, 2),
+                        vel=rng.uniform(-0.6, 0.6, 2),
+                        acc=rng.uniform(-80.0, 80.0, 2))
     return st
 
 
@@ -340,6 +395,59 @@ def test_cuda_sweep_and_coupling9_equal_their_twins(rows, cols):
         assert torch.equal(_bits(st_n[keep]), _bits(st[keep]))
         assert bool(torch.isnan(st_n[~keep]).all())
     assert float(pl.abs().max()) == 0.0          # copied-through cells
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, full", [(16, False), (32, True)])
+def test_cuda_migrate_and_force_on_a_multi_block_grid(K, full):
+    """migrate and the force pass on a grid of several tiles and bands of
+    their blocks, with crowds on tile and band edges fed across them: M9
+    equals migrate_plain to the bit and particles were dropped; the force
+    pass is within the sweep tolerances of force_plain and equals the pair
+    sweep's forces to the bit on the M9 whose rho and p come from the
+    density kernel and the EOS. NaN in every plane but the occupancy of the
+    empty slots of ST and D8 changes no output bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    pad = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
+    st = torch.from_numpy(_crowded_st(K, full=full)).cuda()
+    mig = dict(MIG, nx=CROWD_NX)
+    SK.reset_counters()
+    m9 = SK.migrate(st, **mig)
+    assert torch.equal(_bits(m9), _bits(SK.migrate_plain(st, **mig)))
+    assert int((st[:, SK.ST_OCC] > 0).sum()) > int((m9[:, SK.M9_OCC] > 0)
+                                                   .sum())    # drops
+    x, y, vx, vy, m, occ, hx, hy, pid = m9.unbind(1)
+    rho_p = pad(SK.density(torch.stack([x, y, m, occ], 1), h=H,
+                           poly6=SWEEP["poly6"]))
+    pres = torch.clamp(FC.stiffness * (rho_p - FC.rest_density), min=0.0)
+    fkw = {k: SWEEP[k] for k in ("h", "spiky", "visc_lap", "viscosity",
+                                 "min_d2", "min_rho")}
+    d8 = torch.stack([x, y, vx, vy, m, rho_p, pres, occ], 1)
+    fx, fy = SK.force(d8, **fkw)
+    inner = (occ[1:-1] > 0).cpu().numpy()
+    assert_sweep_close([v.cpu() for v in (rho_p[1:-1], fx, fy)],
+                       [rho_p[1:-1].cpu()] +
+                       [v.cpu() for v in SK.force_plain(d8, **fkw)], inner)
+    sw = SK.pair_sweep(m9, **SWEEP)
+    for u, v in zip(sw, (rho_p[1:-1], fx, fy)):
+        assert torch.equal(_bits(u), _bits(v))
+    assert float(fx.abs().max()) > 0
+    assert {op.name: op.launches for op in SK.OPS} == dict(
+        migrate=1, pair_sweep=1, coupling9=0, density=1, force=1, coupling=0)
+
+    def plant(stack, occ_plane):
+        out = stack.clone()
+        empty = out[:, occ_plane] <= 0
+        for f in range(stack.shape[1]):
+            if f != occ_plane:
+                out[:, f][empty] = float("nan")
+        return out
+
+    assert torch.equal(_bits(SK.migrate(plant(st, SK.ST_OCC), **mig)),
+                       _bits(m9))
+    for u, v in zip(SK.force(plant(d8, SK.D8_OCC), **fkw), (fx, fy)):
+        assert torch.equal(_bits(u), _bits(v))
 
 
 def test_fluid_config_tree_is_the_one_tested():
