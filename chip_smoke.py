@@ -4,10 +4,10 @@
 Run from the root of a checkout, with one CUDA card:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare PARENT_DIR
+    python3 chip_smoke.py --compare PARENT_DIR [OTHER_DIR ...]
 
-The second form only times the SPH kernels of two trees on one card (see
-compare()); the phases below are the first.
+The second form only times the SPH kernels of other trees and this one,
+alternated on one card (see compare()); the phases below are the first.
 
 Phases (any failure raises and exits non-zero, printing no result):
   1. require CUDA; print the card (nvidia-smi name, power limit), torch and
@@ -25,8 +25,15 @@ Phases (any failure raises and exits non-zero, printing no result):
      cell couples); then NaN planted in x, y, vx, vy and m of every empty
      slot of M9 must leave rho, fx, fy, PL and bigp bitwise unchanged (and
      reach ST only where an empty slot's own x, y, m are copied through),
-     and NaN in every plane but the occupancy of the empty slots of ST and
-     D8 must leave migrate's M9 and force's fx, fy bitwise unchanged.
+     and NaN in every plane but the occupancy of the empty slots of ST,
+     D8, D4 and D10 must leave migrate's M9, force's fx, fy, density's rho,
+     and coupling's PL, bigp and occupied slots bitwise unchanged. At K =
+     32, the kernels' largest (the same sub-step with its slots padded
+     from 16), density, coupling9 and coupling on both candidate sets are
+     held against their plain versions and, to the bit, their K = 16
+     outputs; then coupling9 and coupling at K = 32 with live particles in
+     slots 16-31 (each cell takes the slots of two neighbouring columns)
+     against their plain versions and each other, to the bit.
      coupling9 and coupling are timed and bounded on both input sets; the
      kernels' line carries the main path's. Kernel times are each launch's
      alone, with L2 flushed before it (cuda_ms), as a tick finds its
@@ -432,37 +439,45 @@ def check_kernels(dev):
         "coupling": lambda out: (torch.stack(out[:4]), torch.stack(out[4:6]),
                                  out[6], out[7]),
     }
+
+    def check_couple(name, label, op, a, slots=K):
+        """A coupling kernel's outputs on arguments ``a``, whose cells hold
+        up to ``slots`` live particles, against its plain version's:
+        (outputs, max abs error, nonzero partials)."""
+        out = op(*a, cn=ck)
+        st_k, a_k, pl_k, big_k = views[name](out)
+        st_p, a_p, pl_p, big_p = views[name](op.plain(*a, cn=ck))
+        st_err = max_err(st_k, st_p)
+        a_err = max_err(a_k, a_p)
+        a_scale = float(a_p.abs().max())
+        # partials: per (row, slot, column) and per (row, block) sums,
+        # elementwise, to 1e-5 plus 1e-6 of the largest for each 16 live
+        # slots a cell may hold (float32 ulps of a block's sum over up to
+        # 32 x slots particles, which the plain version adds with
+        # index_add_ in an order that varies by run on the card)
+        pl_err = max_err(pl_k, pl_p)
+        big_err = max_err(big_k, big_p)
+        part_scale = max(float(pl_p.abs().max()),
+                         float(big_p.abs().max()) if big_p.numel() else 0.0)
+        contact = int((big_p.abs() > 0).sum() + (pl_p.abs() > 0).sum())
+        print(f"{name} ({label}): cells coupled {int((a[0] > 0).sum())}, "
+              f"nonzero partials {contact}, state err {st_err:.3e}, accel "
+              f"err {a_err:.3e} of {a_scale:.4g}, partials err "
+              f"{max(big_err, pl_err):.3e} of {part_scale:.4g}", flush=True)
+        if st_err > 1e-5 or a_err > max(1e-5, 1e-6 * a_scale) or \
+                max(big_err, pl_err) > 1e-5 + 1e-6 * slots / 16 * part_scale:
+            fail(f"{name} ({label}) differs from its plain version")
+        return out, max(st_err, big_err, pl_err), contact
+
     outs = {}
     for name, op, tail in (("coupling9", SK.coupling9, (M9, *sw)),
                            ("coupling", SK.coupling, (D10,))):
         errs[name] = 0.0
         contact = 0
         for cname, cand in cands.items():
-            a = (*cand, *tail)
-            outs[name, cname] = op(*a, cn=ck)
-            st_k, a_k, pl_k, big_k = views[name](outs[name, cname])
-            st_p, a_p, pl_p, big_p = views[name](op.plain(*a, cn=ck))
-            st_err = max_err(st_k, st_p)
-            a_err = max_err(a_k, a_p)
-            a_scale = float(a_p.abs().max())
-            # partials: per (row, slot, column) and per (row, block) sums,
-            # elementwise, to 1e-5 plus 1e-6 of the largest (float32 ulps
-            # of a block's sum over up to 32 x K particles)
-            pl_err = max_err(pl_k, pl_p)
-            big_err = max_err(big_k, big_p)
-            part_scale = max(float(pl_p.abs().max()),
-                             float(big_p.abs().max()) if big_p.numel()
-                             else 0.0)
-            errs[name] = max(errs[name], st_err, big_err, pl_err)
-            contact = int((big_p.abs() > 0).sum() + (pl_p.abs() > 0).sum())
-            print(f"{name} ({cname}): cells coupled {int((a[0] > 0).sum())}"
-                  f", nonzero partials {contact}, state err {st_err:.3e}, "
-                  f"accel err {a_err:.3e} of {a_scale:.4g}, partials err "
-                  f"{max(big_err, pl_err):.3e} of {part_scale:.4g}",
-                  flush=True)
-            if st_err > 1e-5 or a_err > max(1e-5, 1e-6 * a_scale) or \
-                    max(big_err, pl_err) > 1e-5 + 1e-6 * part_scale:
-                fail(f"{name} differs from its plain version")
+            outs[name, cname], err, contact = check_couple(
+                name, cname, op, (*cand, *tail))
+            errs[name] = max(errs[name], err)
         if contact == 0:
             fail(f"{name}: the moved wall coupled with no particle")
 
@@ -519,6 +534,105 @@ def check_kernels(dev):
     if not nan_ok:
         fail("NaN in empty slots reached migrate, the pair sweep, coupling9 "
              "or force")
+    # NaN in every plane but the occupancy of the empty slots of D4 must
+    # leave density's rho bitwise unchanged; of D10, coupling's PL and bigp
+    # and every occupied slot's outputs (an empty slot's own planes are
+    # copied through, as NaN)
+    twins["nan_in_empty_slots_D4"] = same_bits(SK.density(plant(D4, 3),
+                                                          **dk), rho)
+    empty10 = (D10[:, SK.D10_OCC] <= 0)[1:-1]
+    D10n = plant(D10, SK.D10_OCC)
+    nan_ok = True
+    for cname, cand in cands.items():
+        got, ref = SK.coupling(*cand, D10n, cn=ck), outs["coupling", cname]
+        for u, v in zip(got[:6], ref[:6]):
+            want = v.clone()
+            want[1:-1][empty10] = nan
+            nan_ok = nan_ok and same_bits_or_nan(u, want)
+        nan_ok = nan_ok and same_bits(got[6], ref[6]) and \
+            same_bits(got[7], ref[7])
+    twins["nan_in_empty_slots_D10"] = nan_ok
+    print(f"planted NaN in the empty slots of D4 and D10: density's rho "
+          f"unchanged {twins['nan_in_empty_slots_D4']}; coupling's PL, bigp"
+          f" and occupied slots unchanged {nan_ok}", flush=True)
+    if not (nan_ok and twins["nan_in_empty_slots_D4"]):
+        fail("NaN in empty slots reached density or coupling")
+
+    # K = 32, the kernels' largest: the same sub-step with its slots padded
+    # from 16 to 32. density, coupling9 and coupling (both candidate sets)
+    # against their plain versions, and to the bit their K = 16 outputs in
+    # slots 0-15, PL and bigp (empty slots add +0)
+    pad32 = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 32 - K))
+    rho32 = SK.density(pad32(D4), **dk)
+    rho32_p = SK.density_plain(pad32(D4), **dk)
+    errs["density"] = max(errs["density"], max_err(rho32, rho32_p))
+    if rel(rho32[:, :K], rho32_p[:, :K]) > 1e-5:
+        fail("density at K = 32 differs from its plain version")
+    k32_ok = same_bits(rho32[:, :K], rho) and \
+        float(rho32[:, K:].abs().max()) == 0.0
+    slots = {"coupling9": lambda out: [out[0][:, :, :K]],
+             "coupling": lambda out: [u[:, :K] for u in out[:6]]}
+    for name, op, tail in (("coupling9", SK.coupling9,
+                            (pad32(M9), *map(pad32, sw))),
+                           ("coupling", SK.coupling, (pad32(D10),))):
+        for cname, cand in cands.items():
+            out32, err, _ = check_couple(name, f"{cname}, K = 32", op,
+                                         (*cand, *tail))
+            errs[name] = max(errs[name], err)
+            ref = outs[name, cname]
+            k32_ok = k32_ok and all(same_bits(u, v) for u, v in zip(
+                slots[name](out32), slots[name](ref))) and \
+                all(same_bits(u, v) for u, v in zip(out32[-2:], ref[-2:]))
+    twins["k32_equals_k16"] = k32_ok
+    print(f"density, coupling9 and coupling at K = 32 (slots padded): slots "
+          f"0-15, PL and bigp bitwise equal to K = 16 {k32_ok}", flush=True)
+    if not k32_ok:
+        fail("density, coupling9 or coupling at K = 32 differs from K = 16")
+
+    # K = 32 with live particles in slots 16-31: each cell takes the slots
+    # of two neighbouring columns (cols 288 -> 144), so in every block of a
+    # cell that holds particles warps 16-31 list some too. coupling9 and
+    # coupling on both candidate sets against their plain versions, and
+    # against each other to the bit
+    def fold(t):
+        """[..., 16, W] -> [..., 32, W / 2]: cell c takes the slots of
+        columns 2c (slots 0-15) and 2c + 1 (slots 16-31)."""
+        *lead, k, w = t.shape
+        return t.reshape(*lead, k, w // 2, 2).movedim(-1, -3) \
+            .reshape(*lead, 2 * k, w // 2).contiguous()
+
+    if W % 2:
+        fail(f"cannot fold {W} columns in pairs")
+    M9f, swf, D10f = fold(M9), [fold(v) for v in sw], fold(D10)
+    folded = {n: (c.reshape(rows, W // 2, 2).amax(-1).contiguous(),
+                  f[..., 0::2].contiguous(), b)
+              for n, (c, f, b) in cands.items()}
+    upper = (D10f[:, SK.D10_OCC, K:] > 0) & (folded["wall"][0] > 0)[:, None]
+    fold_ok, outf = True, {}
+    for cname, cand in folded.items():
+        o9, err9, _ = check_couple("coupling9", f"{cname}, K = 32 folded",
+                                   SK.coupling9, (*cand, M9f, *swf), 2 * K)
+        oc, errc, _ = check_couple("coupling", f"{cname}, K = 32 folded",
+                                   SK.coupling, (*cand, D10f), 2 * K)
+        errs["coupling9"] = max(errs["coupling9"], err9)
+        errs["coupling"] = max(errs["coupling"], errc)
+        st_c = torch.stack([*oc[:6], M9f[:, SK.M9_M], M9f[:, SK.M9_ID],
+                            M9f[:, SK.M9_OCC]], 1)
+        st_c[0] = st_c[-1] = 0.0
+        fold_ok = fold_ok and same_bits(o9[0], st_c) and \
+            same_bits(o9[1], oc[6]) and same_bits(o9[2], oc[7])
+        outf[cname] = oc
+    xw, yw = outf["wall"][:2]
+    moved = ((xw != D10f[:, SK.D10_X]) | (yw != D10f[:, SK.D10_Y]))[:, K:] \
+        & upper
+    twins["k32_full_slots"] = fold_ok
+    print(f"coupling9 and coupling at K = 32 (column pairs folded): "
+          f"{int(upper.sum())} coupled particles in slots 16-31, "
+          f"{int(moved.sum())} of them moved by the wall; coupling9 equals "
+          f"coupling to the bit {fold_ok}", flush=True)
+    if not fold_ok or int(moved.sum()) == 0:
+        fail("the couplings at K = 32 with live slots 16-31 disagree or "
+             "coupled no particle there")
 
     main9 = (*cands["main"], M9, *sw)
     wall9 = (*cands["wall"], M9, *sw)
@@ -631,15 +745,17 @@ def kernel_times(root: Path) -> dict:
             "ms": ms, "warm": warm, "bits": bits}
 
 
-def compare(parent: Path) -> None:
-    """Time the SPH kernels of the tree ``parent`` (another checkout, e.g.
-    ``git archive`` of the parent commit into a directory that .gitignore
-    lists) and of this checkout, alternated on one card: four processes,
-    parent, this, this, parent, each building its tree's kernels and
-    running kernel_times. Prints each run's line, each tree's mean, and
-    whether each kernel's outputs had the same bits in all four runs."""
+def compare(trees: list) -> None:
+    """Time the SPH kernels of other trees (each another checkout: ``git
+    archive`` of the parent commit, or a copy of this one with a kernel's
+    constant changed, in a directory that .gitignore lists) and of this
+    checkout, alternated on one card: one process a run, in the order
+    trees, this, this, trees reversed (parent, this, this, parent for one
+    tree), each building its tree's kernels and running kernel_times.
+    Prints each run's line, each tree's mean, and whether each kernel's
+    outputs had the same bits in all runs."""
     runs = []
-    for root in (parent, ROOT, ROOT, parent):
+    for root in [*trees, ROOT, ROOT, *reversed(trees)]:
         r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                             "--kernel-times", str(root)],
                            capture_output=True, text=True, cwd=str(root),
@@ -651,7 +767,8 @@ def compare(parent: Path) -> None:
         print(json.dumps({k: line[k] for k in ("root", "card", "ms",
                                                 "warm")}), flush=True)
         runs.append(line)
-    for label, root in (("parent", parent), ("this tree", ROOT)):
+    for root in (*trees, ROOT):
+        label = "this tree" if root == ROOT else "other tree"
         got = [x for x in runs if x["root"] == str(root)]
         for key, how in (("ms", "L2 flushed"), ("warm", "warm")):
             mean = {k: sum(g[key][k] for g in got) / len(got)
@@ -660,7 +777,7 @@ def compare(parent: Path) -> None:
                 f"{k} {v:.4f}" for k, v in mean.items()), flush=True)
     same = {k: len({x["bits"][k] for x in runs}) == 1
             for k in runs[0]["bits"]}
-    print("the same output bits in all four runs: " + ", ".join(
+    print(f"the same output bits in all {len(runs)} runs: " + ", ".join(
         f"{k} {v}" for k, v in same.items()), flush=True)
 
 
@@ -986,9 +1103,10 @@ def check_narrowphase(state, run):
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--compare", type=Path, metavar="PARENT_DIR",
-                    help="time the SPH kernels of PARENT_DIR and of this "
-                         "checkout alternately, and do nothing else")
+    ap.add_argument("--compare", type=Path, nargs="+", metavar="DIR",
+                    help="time the SPH kernels of the trees DIR (e.g. the "
+                         "parent commit) and of this checkout alternately, "
+                         "and do nothing else")
     ap.add_argument("--kernel-times", type=Path, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     try:
@@ -997,7 +1115,7 @@ def main(argv=None) -> int:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
-    for root in (ROOT, a.compare, a.kernel_times):
+    for root in (ROOT, *(a.compare or ()), a.kernel_times):
         if root is not None and \
                 not (root / "lpe_tpu_torch" / "ops" / "csrc").is_dir():
             fail(f"not a checkout: no lpe_tpu_torch package in {root}")
@@ -1006,7 +1124,7 @@ def main(argv=None) -> int:
         return 0
     if a.compare is not None:
         print(card_line(), flush=True)
-        compare(a.compare.resolve())
+        compare([d.resolve() for d in a.compare])
         return 0
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False

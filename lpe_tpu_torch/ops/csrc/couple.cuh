@@ -1,16 +1,17 @@
-// The fluid <-> rigid coupling of one particle, shared by the stacked
-// coupling kernel (coupling9.cu) and the split one (coupling.cu).
+// The fluid <-> rigid coupling of one particle and the block body of both
+// coupling kernels: the stacked one (coupling9.cu) and the split one
+// (coupling.cu).
 //
 // The math is that of lpe_tpu/ops/pallas_sph.py: hoist_particle_terms
 // (:266), _cand_math (:290), _couple_rows (:488) and _couple_fin (:449),
-// here hoist, cand_math, cand_add and couple_fin. Both kernels use a block
-// of one grid row, BIG_BLOCK_COLS columns and all K slots (K <= 32), one
-// thread per (slot, column), columns fastest. The per-(row, slot, column)
-// partials and the per-block big-solid sums are reduced in shared memory in
-// a fixed order, never with float atomics, so one input gives one bitwise
-// result. couple_block is the split kernel's block body: every thread walks
-// every candidate that some particle of the block lies in the box of
-// (__syncthreads_or; the TPU kernel skipped per tile).
+// here hoist, cand_math, cand_add and couple_fin. couple_rows is the block
+// body: a block of one grid row, BIG_BLOCK_COLS columns and all K slots
+// (K <= 32), one thread per (slot, column), columns fastest. The two
+// kernels differ only in the slot source they hand it (what a slot loads
+// and where its new state is stored), so on one sub-step they give the
+// same bits. The per-(row, slot, column) partials and the per-block
+// big-solid sums are reduced in shared memory in a fixed order, never with
+// float atomics, so one input gives one bitwise result.
 #pragma once
 
 #include "common.cuh"
@@ -254,9 +255,24 @@ __device__ __forceinline__ CoupleOut couple_fin(const CoupleParams& P,
   return o;
 }
 
-// Shared memory of a coupling block: red[3][K][BIG_BLOCK_COLS] floats.
+// A coupling block is BIG_BLOCK_COLS x K threads: up to 1024 at K = 32,
+// where a thread may hold at most 64 registers; unbounded, the candidate
+// math takes 96. So both coupling kernels take
+// __launch_bounds__(COUPLE_THREADS), which holds them to 64 registers
+// (ptxas spills the rest). At K = 16 (the dam's K) two blocks of 512
+// threads are then resident an SM: on an H100 at DAM_BREAK 100k two beat
+// one (the loads of a copy-through block overlap another's stores; the
+// candidate math's latency hides behind twice the warps) and three (fewer
+// registers, more spills). SIMPLE_FLUID's coupling9, whose few coupled
+// blocks each wait on their own candidate loop, pays the spills: PERF.md.
+constexpr int COUPLE_THREADS = BIG_BLOCK_COLS * 32;
+
+// Shared memory of a coupling block: floats red[3][K][BIG_BLOCK_COLS] and
+// colsum[3][BIG_BLOCK_COLS], ints list[K * BIG_BLOCK_COLS] and
+// count[BIG_BLOCK_COLS].
 inline size_t couple_smem(const CoupleParams* P) {
-  return 3 * (size_t)P->K * BIG_BLOCK_COLS * sizeof(float);
+  const size_t kc = (size_t)P->K * BIG_BLOCK_COLS;
+  return (3 * kc + 3 * BIG_BLOCK_COLS + kc + BIG_BLOCK_COLS) * 4;
 }
 
 // Zero the partial outputs of row p in this block's columns (an apron row,
@@ -273,108 +289,186 @@ __device__ __forceinline__ void couple_zero_partials(const CoupleParams& P,
       bigp[((size_t)p * gridDim.x + blockIdx.x) * 3 * P.NBIG + i] = 0.f;
 }
 
-// Couple the block's particles (threadIdx.x = column in the block,
-// threadIdx.y = slot) of interior row p against the <= S rigids rasterized
-// to each column's cell and the NBIG big solids. Every thread of the block
-// must call it (it synchronizes). Writes pl [rows, 3S, W] and bigp [rows,
-// NB, 3 NBIG] of this block; returns the particle's new state (for a
-// particle that does not couple: unchanged but for the floor clamp).
-__device__ __forceinline__ CoupleOut couple_block(
-    const CoupleParams& P, const float* __restrict__ fld,
-    const float* __restrict__ big, float* __restrict__ pl,
-    float* __restrict__ bigp, float* red, int p, int c, bool col_ok,
-    const CoupleIn& in) {
+// The block body of a coupling kernel: grid (column blocks, rows), block
+// (BIG_BLOCK_COLS columns, K slots), shared memory couple_smem. Couples
+// the particles of row blockIdx.y in the block's columns against the <= S
+// rigids rasterized to each column's cell (fld [rows, S, Wp, W]) and the
+// NBIG big solids (big [NBIG+1, Wp]); writes PL [rows, 3S, W] and bigp
+// [rows, NB, 3 NBIG] of this block. ``src`` is the kernel's slot source:
+// - Slot: holds ``CoupleIn in`` and whatever its store needs;
+// - first(P, p, k, c): a slot's ``in.live`` flag (an occupied slot of a
+//   cell with cpl > 0) and the input of its copy-through (couple_fin with
+//   no candidate, which reads px, py, vx1, vy1, ax and ay);
+// - full(P, p, k, c): all of a live slot's input;
+// - store(P, p, k, c, out, slot): its new state; zero(P, p, k, c): an apron
+//   slot's.
+//
+// What bounds it on the H100: in most blocks, bytes. Where no particle of
+// a block couples (every cell of DAM_BREAK's main path: its boundary
+// margin keeps the fluid off the walls) the kernel is a copy. Where
+// particles couple, the latency and divergence of the per-candidate math
+// (a few hundred float32 operations with sqrt, tanh, pow and divides per
+// particle and candidate) and the candidate-parameter loads.
+//
+// Design:
+// - One block-wide vote (__syncthreads_count) over the threads' live
+//   flags. A block with none copies through: couple_fin with no candidate
+//   (the floor clamp), the new state and zero partials; no hoist,
+//   candidate loop, barrier or reduction.
+// - Otherwise the block lists its live slots (a ballot per warp) and the
+//   first nlive threads take one live particle each, so the candidate math
+//   runs in full warps. A candidate with no live particle in its box is
+//   skipped by the block (__syncthreads_or, the TPU kernel's per-tile
+//   skip).
+// - The partials are summed per column over the K slots in slot order
+//   (empty slots add +0), then per block over the columns in order; each
+//   particle sums its candidates in candidate order through cand_math,
+//   cand_add and couple_fin.
+template <class Src>
+__device__ __forceinline__ void couple_rows(const CoupleParams& P,
+                                            const float* __restrict__ fld,
+                                            const float* __restrict__ big,
+                                            float* __restrict__ pl,
+                                            float* __restrict__ bigp,
+                                            float* red, const Src& src) {
   const int K = P.K, W = P.W, S = P.S, NBIG = P.NBIG, Wp = P.Wp;
+  const int KC = K * BIG_BLOCK_COLS;
   const int tx = threadIdx.x, k = threadIdx.y;
-  const int NB = gridDim.x;
+  const int t = k * BIG_BLOCK_COLS + tx;     // warp k, lane tx
+  const int c0 = blockIdx.x * BIG_BLOCK_COLS;
+  const int c = c0 + tx;
+  const int p = blockIdx.y;
+  const bool col_ok = c < W;
+  using Slot = typename Src::Slot;
+
+  if (p == 0 || p == P.rows - 1) {          // apron rows: all zero
+    if (col_ok) src.zero(P, p, k, c);
+    couple_zero_partials(P, pl, bigp, p, c, col_ok);
+    return;
+  }
+
+  Slot me{};
+  if (col_ok) me = src.first(P, p, k, c);
   float* red_x = red;
-  float* red_y = red + K * BIG_BLOCK_COLS;
-  float* red_t = red + 2 * K * BIG_BLOCK_COLS;
-  const int ridx = k * BIG_BLOCK_COLS + tx;
-  const float px = in.px, py = in.py, vx1 = in.vx1, vy1 = in.vy1;
-  const bool live = in.live;
-  const Hoist hp = hoist(P, py, in.rho, in.pe, in.m);
-  CoupleAcc acc = {0.f, 0.f, 0.f, 0.f, false, false};
+  float* red_y = red + KC;
+  float* red_t = red + 2 * KC;
+  float* colsum = red + 3 * KC;                // [3][BIG_BLOCK_COLS]
+  int* list = reinterpret_cast<int*>(colsum + 3 * BIG_BLOCK_COLS);
+  int* count = list + KC;                      // live slots per warp
+  const unsigned ball = __ballot_sync(0xffffffffu, me.in.live);
+  if (tx == 0) count[k] = __popc(ball);
+  const int nlive = __syncthreads_count(me.in.live);
+  const CoupleAcc none = {0.f, 0.f, 0.f, 0.f, false, false};
+
+  if (nlive == 0) {                           // copy-through block
+    couple_zero_partials(P, pl, bigp, p, c, col_ok);
+    if (col_ok) src.store(P, p, k, c, couple_fin(P, none, me.in), me);
+    return;
+  }
+
+  // the live slots, slot-major: thread i < nlive takes list[i]
+  if (me.in.live) {
+    int base = 0;
+    for (int w = 0; w < k; ++w) base += count[w];
+    list[base + __popc(ball & ((1u << tx) - 1u))] = t;
+  }
+  red_x[t] = 0.f;                             // empty slots sum as +0
+  red_y[t] = 0.f;
+  red_t[t] = 0.f;
+  __syncthreads();
+  const bool has = t < nlive;
+  int ridx = 0, ic = 0, ik = 0;
+  Slot it = me;
+  Hoist hp = {0.f, 0.f, 0.f};
+  CoupleAcc acc = none;
+  if (has) {
+    ridx = list[t];
+    ik = ridx / BIG_BLOCK_COLS;
+    ic = c0 + ridx % BIG_BLOCK_COLS;
+    it = src.full(P, p, ik, ic);
+    hp = hoist(P, it.in.py, it.in.rho, it.in.pe, it.in.m);
+  }
+  const CoupleIn& in = it.in;
+  // a listed particle against one candidate (parameter i at prm[i *
+  // stride]): its sums, and its force and torque into the slot's red entry
+  // (+0 where the particle is not in the candidate's box)
+  auto add_cand = [&](const float* prm, int stride, bool inb) {
+    Cand r = {false, false, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (inb) {
+      r = cand_math(P, prm, stride, true, in.px, in.py, in.vx1, in.vy1, hp);
+      cand_add(acc, r);
+    }
+    red_x[ridx] = r.fx;
+    red_y[ridx] = r.fy;
+    red_t[ridx] = r.tq;
+  };
 
   // rasterized per-cell candidates: one column's slot s shares its params
   for (int s = 0; s < S; ++s) {
-    const float* prm = fld + ((size_t)(p * S + s) * Wp) * W + c;
-    const bool inb = col_ok && in_box(prm, W, px, py, live);
-    float cfx = 0.f, cfy = 0.f, ctq = 0.f;
-    if (__syncthreads_or(inb)) {
-      if (col_ok) {
-        const Cand o = cand_math(P, prm, W, inb, px, py, vx1, vy1, hp);
-        cand_add(acc, o);
-        cfx = o.fx;
-        cfy = o.fy;
-        ctq = o.tq;
-      }
+    const float* prm = fld + ((size_t)(p * S + s) * Wp) * W + ic;
+    const bool inb = has && in_box(prm, W, in.px, in.py, true);
+    float* o = pl + ((size_t)p * 3 * S + 3 * s) * W + c;
+    if (!__syncthreads_or(inb)) {
+      if (k == 0 && col_ok) o[0] = o[W] = o[2 * W] = 0.f;
+      continue;
     }
-    red_x[ridx] = cfx;
-    red_y[ridx] = cfy;
-    red_t[ridx] = ctq;
+    if (has) add_cand(prm, W, inb);
     __syncthreads();
-    if (k == 0 && col_ok) {            // fixed-order sum over the K slots
-      float a = 0.f, b = 0.f, t = 0.f;
+    if (k == 0 && col_ok) {                   // fixed-order sum over slots
+      float a = 0.f, b = 0.f, q = 0.f;
       for (int kk = 0; kk < K; ++kk) {
         a = a + red_x[kk * BIG_BLOCK_COLS + tx];
         b = b + red_y[kk * BIG_BLOCK_COLS + tx];
-        t = t + red_t[kk * BIG_BLOCK_COLS + tx];
+        q = q + red_t[kk * BIG_BLOCK_COLS + tx];
       }
-      float* o = pl + ((size_t)p * 3 * S + 3 * s) * W + c;
       o[0] = a;
       o[W] = b;
-      o[2 * W] = t;
+      o[2 * W] = q;
     }
     __syncthreads();
   }
 
   // big solids: one dense parameter row each, shared by the whole block
+  const int NB = gridDim.x;
   for (int bi = 0; bi < NBIG; ++bi) {
     const float* prm = big + (size_t)bi * Wp;
-    const bool inb = col_ok && in_box(prm, 1, px, py, live);
-    float cfx = 0.f, cfy = 0.f, ctq = 0.f;
-    if (__syncthreads_or(inb)) {
-      if (col_ok) {
-        const Cand o = cand_math(P, prm, 1, inb, px, py, vx1, vy1, hp);
-        cand_add(acc, o);
-        cfx = o.fx;
-        cfy = o.fy;
-        ctq = o.tq;
-      }
+    const bool inb = has && in_box(prm, 1, in.px, in.py, true);
+    float* o = bigp + ((size_t)p * NB + blockIdx.x) * 3 * NBIG + 3 * bi;
+    if (!__syncthreads_or(inb)) {
+      if (t == 0) o[0] = o[1] = o[2] = 0.f;
+      continue;
     }
-    red_x[ridx] = cfx;
-    red_y[ridx] = cfy;
-    red_t[ridx] = ctq;
+    if (has) add_cand(prm, 1, inb);
     __syncthreads();
-    if (k == 0) {                      // per column over K, fixed order
-      float a = 0.f, b = 0.f, t = 0.f;
+    if (k == 0) {                             // per column over K, in order
+      float a = 0.f, b = 0.f, q = 0.f;
       for (int kk = 0; kk < K; ++kk) {
         a = a + red_x[kk * BIG_BLOCK_COLS + tx];
         b = b + red_y[kk * BIG_BLOCK_COLS + tx];
-        t = t + red_t[kk * BIG_BLOCK_COLS + tx];
+        q = q + red_t[kk * BIG_BLOCK_COLS + tx];
       }
-      red_x[tx] = a;
-      red_y[tx] = b;
-      red_t[tx] = t;
+      colsum[tx] = a;
+      colsum[BIG_BLOCK_COLS + tx] = b;
+      colsum[2 * BIG_BLOCK_COLS + tx] = q;
     }
     __syncthreads();
-    if (k == 0 && tx == 0) {           // then over the block's columns
-      float a = 0.f, b = 0.f, t = 0.f;
+    if (t == 0) {                             // then over the columns
+      float a = 0.f, b = 0.f, q = 0.f;
       for (int cc = 0; cc < BIG_BLOCK_COLS; ++cc) {
-        a = a + red_x[cc];
-        b = b + red_y[cc];
-        t = t + red_t[cc];
+        a = a + colsum[cc];
+        b = b + colsum[BIG_BLOCK_COLS + cc];
+        q = q + colsum[2 * BIG_BLOCK_COLS + cc];
       }
-      float* o = bigp + ((size_t)p * NB + blockIdx.x) * 3 * NBIG + 3 * bi;
       o[0] = a;
       o[1] = b;
-      o[2] = t;
+      o[2] = q;
     }
     __syncthreads();
   }
 
-  return couple_fin(P, acc, in);
+  if (has) src.store(P, p, ik, ic, couple_fin(P, acc, in), it);
+  if (col_ok && !me.in.live)
+    src.store(P, p, k, c, couple_fin(P, none, me.in), me);
 }
 
 }  // namespace

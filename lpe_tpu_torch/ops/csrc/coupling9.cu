@@ -11,31 +11,15 @@
 // slots) and the big-solid sums bigp [rows, NB, 3 NBIG] per row and block
 // of BIG_BLOCK_COLS columns.
 //
-// What bounds it on the H100: in most blocks, bytes. Where no particle of
-// a block couples (every cell of DAM_BREAK's main path: its boundary
-// margin keeps the fluid off the walls) the kernel is a copy: seven M9
-// planes and rho, fx, fy in, nine ST planes and zero partials out. Where
-// particles couple, the latency and divergence of the per-candidate math
-// (a few hundred float32 operations with sqrt, tanh, pow and divides per
-// particle and candidate) and the candidate-parameter loads.
-//
-// Design: a block is one row, BIG_BLOCK_COLS columns and all K slots (K <=
-// 32), one thread per (slot, column), columns fastest, so every load and
-// store of a plane is coalesced.
-// - One block-wide vote (__syncthreads_count) over the threads' `live`
-//   flags. A block with none takes a straight copy-through: second kick,
-//   EOS, floor clamp (couple_fin with no candidate), the nine ST planes and
-//   zero partials; no candidate loop, barrier or reduction.
-// - Otherwise the block lists its live slots (a ballot per warp) and the
-//   first nlive threads take one live particle each, so the candidate math
-//   runs in full warps. A candidate with no live particle in its box is
-//   skipped by the block (__syncthreads_or, the TPU kernel's per-tile skip).
-// - The partials are summed as the split kernel (coupling.cu) sums them:
-//   per column over the K slots in slot order (empty slots hold +0), then
-//   per block over the columns in order; each particle sums its candidates
-//   in candidate order through couple.cuh's cand_math, cand_add and
-//   couple_fin. ST, PL and bigp equal coupling.cu's on the same sub-step to
-//   the bit, never with float atomics.
+// What bounds it on the H100, and the design: couple.cuh's couple_rows,
+// the block body it shares with the split kernel (coupling.cu). In most
+// blocks no particle couples (every cell of DAM_BREAK's main path) and the
+// kernel is a copy: seven M9 planes and rho, fx, fy in, nine ST planes and
+// zero partials out. Its slot source loads a slot's M9 planes and the
+// sweep's results whole, with the second kick and the EOS, for the
+// copy-through and the candidate math alike, and stores the nine ST
+// planes. ST, PL and bigp equal coupling.cu's on the same sub-step to the
+// bit.
 #include "couple.cuh"
 
 namespace {
@@ -89,174 +73,54 @@ __device__ __forceinline__ void store_st9(float* __restrict__ st,
   o[ST_OCC * plane] = s.occ;
 }
 
-// Shared memory of a block: floats red[3][K][BIG_BLOCK_COLS] and
-// colsum[3][BIG_BLOCK_COLS], ints list[K * BIG_BLOCK_COLS] and
-// count[BIG_BLOCK_COLS].
-inline size_t coupling9_smem(const CoupleParams* P) {
-  const size_t kc = (size_t)P->K * BIG_BLOCK_COLS;
-  return (3 * kc + 3 * BIG_BLOCK_COLS + kc + BIG_BLOCK_COLS) * 4;
-}
+// coupling9's slots for couple_rows: a slot of M9 with the sweep's
+// results, stored as the nine ST planes.
+struct Src9 {
+  using Slot = Slot9;
+  const int* __restrict__ cpl;
+  const float *__restrict__ m9, *__restrict__ rho, *__restrict__ fxr,
+      *__restrict__ fyr;
+  float* __restrict__ st;
+
+  __device__ __forceinline__ Slot9 first(const CoupleParams& P, int p, int k,
+                                         int c) const {
+    return load_slot9(cpl, m9, rho, fxr, fyr, P, p, k, c);
+  }
+  __device__ __forceinline__ Slot9 full(const CoupleParams& P, int p, int k,
+                                        int c) const {
+    return first(P, p, k, c);
+  }
+  __device__ __forceinline__ void store(const CoupleParams& P, int p, int k,
+                                        int c, const CoupleOut& out,
+                                        const Slot9& s) const {
+    store_st9(st, P, p, k, c, out, s);
+  }
+  __device__ __forceinline__ void zero(const CoupleParams& P, int p, int k,
+                                       int c) const {
+    const size_t plane = (size_t)P.K * P.W;
+    for (int f = 0; f < 9; ++f)
+      st[(size_t)p * 9 * plane + f * plane + (size_t)k * P.W + c] = 0.f;
+  }
+};
 
 }  // namespace
 
 // block: (BIG_BLOCK_COLS columns, K slots); grid: (column blocks, rows).
-__global__ void coupling9_kernel(const int* __restrict__ cpl,
-                                 const float* __restrict__ fld,
-                                 const float* __restrict__ big,
-                                 const float* __restrict__ m9,
-                                 const float* __restrict__ rho,
-                                 const float* __restrict__ fxr,
-                                 const float* __restrict__ fyr,
-                                 float* __restrict__ st,
-                                 float* __restrict__ pl,
-                                 float* __restrict__ bigp, CoupleParams P) {
+__global__ void __launch_bounds__(COUPLE_THREADS)
+    coupling9_kernel(const int* __restrict__ cpl,
+                     const float* __restrict__ fld,
+                     const float* __restrict__ big,
+                     const float* __restrict__ m9,
+                     const float* __restrict__ rho,
+                     const float* __restrict__ fxr,
+                     const float* __restrict__ fyr,
+                     float* __restrict__ st,
+                     float* __restrict__ pl,
+                     float* __restrict__ bigp,
+                     CoupleParams P) {
   extern __shared__ float red[];
-  const int K = P.K, W = P.W, S = P.S, NBIG = P.NBIG, Wp = P.Wp;
-  const int KC = K * BIG_BLOCK_COLS;
-  const int tx = threadIdx.x, k = threadIdx.y;
-  const int t = k * BIG_BLOCK_COLS + tx;     // warp k, lane tx
-  const int c0 = blockIdx.x * BIG_BLOCK_COLS;
-  const int c = c0 + tx;
-  const int p = blockIdx.y;
-  const bool col_ok = c < W;
-  const size_t plane = (size_t)K * W;
-
-  if (p == 0 || p == P.rows - 1) {          // apron rows: all zero
-    if (col_ok)
-      for (int f = 0; f < 9; ++f)
-        st[(size_t)p * 9 * plane + f * plane + (size_t)k * W + c] = 0.f;
-    couple_zero_partials(P, pl, bigp, p, c, col_ok);
-    return;
-  }
-
-  Slot9 me = {{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false}, 0.f,
-              0.f};
-  if (col_ok) me = load_slot9(cpl, m9, rho, fxr, fyr, P, p, k, c);
-  float* red_x = red;
-  float* red_y = red + KC;
-  float* red_t = red + 2 * KC;
-  float* colsum = red + 3 * KC;                // [3][BIG_BLOCK_COLS]
-  int* list = reinterpret_cast<int*>(colsum + 3 * BIG_BLOCK_COLS);
-  int* count = list + KC;                      // live slots per warp
-  const unsigned ball = __ballot_sync(0xffffffffu, me.in.live);
-  if (tx == 0) count[k] = __popc(ball);
-  const int nlive = __syncthreads_count(me.in.live);
-
-  if (nlive == 0) {                           // copy-through block
-    couple_zero_partials(P, pl, bigp, p, c, col_ok);
-    if (col_ok) {
-      const CoupleAcc none = {0.f, 0.f, 0.f, 0.f, false, false};
-      store_st9(st, P, p, k, c, couple_fin(P, none, me.in), me);
-    }
-    return;
-  }
-
-  // the live slots, slot-major: thread i < nlive takes list[i]
-  if (me.in.live) {
-    int base = 0;
-    for (int w = 0; w < k; ++w) base += count[w];
-    list[base + __popc(ball & ((1u << tx) - 1u))] = t;
-  }
-  red_x[t] = 0.f;                             // empty slots sum as +0
-  red_y[t] = 0.f;
-  red_t[t] = 0.f;
-  __syncthreads();
-  const bool has = t < nlive;
-  int ridx = 0, ic = 0, ik = 0;
-  Slot9 it = me;
-  Hoist hp = {0.f, 0.f, 0.f};
-  CoupleAcc acc = {0.f, 0.f, 0.f, 0.f, false, false};
-  if (has) {
-    ridx = list[t];
-    ik = ridx / BIG_BLOCK_COLS;
-    ic = c0 + ridx % BIG_BLOCK_COLS;
-    it = load_slot9(cpl, m9, rho, fxr, fyr, P, p, ik, ic);
-    hp = hoist(P, it.in.py, it.in.rho, it.in.pe, it.in.m);
-  }
-  const CoupleIn& in = it.in;
-  // a listed particle against one candidate (parameter i at prm[i *
-  // stride]): its sums, and its force and torque into the slot's red entry
-  // (+0 where the particle is not in the candidate's box)
-  auto add_cand = [&](const float* prm, int stride, bool inb) {
-    Cand r = {false, false, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (inb) {
-      r = cand_math(P, prm, stride, true, in.px, in.py, in.vx1, in.vy1, hp);
-      cand_add(acc, r);
-    }
-    red_x[ridx] = r.fx;
-    red_y[ridx] = r.fy;
-    red_t[ridx] = r.tq;
-  };
-
-  // rasterized per-cell candidates: one column's slot s shares its params
-  for (int s = 0; s < S; ++s) {
-    const float* prm = fld + ((size_t)(p * S + s) * Wp) * W + ic;
-    const bool inb = has && in_box(prm, W, in.px, in.py, true);
-    float* o = pl + ((size_t)p * 3 * S + 3 * s) * W + c;
-    if (!__syncthreads_or(inb)) {
-      if (k == 0 && col_ok) o[0] = o[W] = o[2 * W] = 0.f;
-      continue;
-    }
-    if (has) add_cand(prm, W, inb);
-    __syncthreads();
-    if (k == 0 && col_ok) {                   // fixed-order sum over slots
-      float a = 0.f, b = 0.f, q = 0.f;
-      for (int kk = 0; kk < K; ++kk) {
-        a = a + red_x[kk * BIG_BLOCK_COLS + tx];
-        b = b + red_y[kk * BIG_BLOCK_COLS + tx];
-        q = q + red_t[kk * BIG_BLOCK_COLS + tx];
-      }
-      o[0] = a;
-      o[W] = b;
-      o[2 * W] = q;
-    }
-    __syncthreads();
-  }
-
-  // big solids: one dense parameter row each, shared by the whole block
-  const int NB = gridDim.x;
-  for (int bi = 0; bi < NBIG; ++bi) {
-    const float* prm = big + (size_t)bi * Wp;
-    const bool inb = has && in_box(prm, 1, in.px, in.py, true);
-    float* o = bigp + ((size_t)p * NB + blockIdx.x) * 3 * NBIG + 3 * bi;
-    if (!__syncthreads_or(inb)) {
-      if (t == 0) o[0] = o[1] = o[2] = 0.f;
-      continue;
-    }
-    if (has) add_cand(prm, 1, inb);
-    __syncthreads();
-    if (k == 0) {                             // per column over K, in order
-      float a = 0.f, b = 0.f, q = 0.f;
-      for (int kk = 0; kk < K; ++kk) {
-        a = a + red_x[kk * BIG_BLOCK_COLS + tx];
-        b = b + red_y[kk * BIG_BLOCK_COLS + tx];
-        q = q + red_t[kk * BIG_BLOCK_COLS + tx];
-      }
-      colsum[tx] = a;
-      colsum[BIG_BLOCK_COLS + tx] = b;
-      colsum[2 * BIG_BLOCK_COLS + tx] = q;
-    }
-    __syncthreads();
-    if (t == 0) {                             // then over the columns
-      float a = 0.f, b = 0.f, q = 0.f;
-      for (int cc = 0; cc < BIG_BLOCK_COLS; ++cc) {
-        a = a + colsum[cc];
-        b = b + colsum[BIG_BLOCK_COLS + cc];
-        q = q + colsum[2 * BIG_BLOCK_COLS + cc];
-      }
-      o[0] = a;
-      o[1] = b;
-      o[2] = q;
-    }
-    __syncthreads();
-  }
-
-  if (has)
-    store_st9(st, P, p, ik, ic, couple_fin(P, acc, in), it);
-  if (col_ok && !me.in.live) {
-    const CoupleAcc none = {0.f, 0.f, 0.f, 0.f, false, false};
-    store_st9(st, P, p, k, c, couple_fin(P, none, me.in), me);
-  }
+  const Src9 src = {cpl, m9, rho, fxr, fyr, st};
+  couple_rows(P, fld, big, pl, bigp, red, src);
 }
 
 LPE_EXPORT int lpe_coupling9(const int* cpl, const float* fld,
@@ -265,9 +129,10 @@ LPE_EXPORT int lpe_coupling9(const int* cpl, const float* fld,
                              const float* fy, float* st, float* pl,
                              float* bigp, cudaStream_t stream,
                              const CoupleParams* P) {
+  if (P->K < 1 || P->K > 32) return (int)cudaErrorInvalidValue;
   dim3 block(BIG_BLOCK_COLS, P->K);
   dim3 grid((P->W + BIG_BLOCK_COLS - 1) / BIG_BLOCK_COLS, P->rows);
-  coupling9_kernel<<<grid, block, coupling9_smem(P), stream>>>(
+  coupling9_kernel<<<grid, block, couple_smem(P), stream>>>(
       cpl, fld, big, m9, rho, fx, fy, st, pl, bigp, *P);
   return (int)cudaGetLastError();
 }

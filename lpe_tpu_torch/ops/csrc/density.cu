@@ -4,28 +4,191 @@
 // Replaces the Pallas TPU kernel make_density / _density_kernel
 // (lpe_tpu/ops/pallas_sph.py:78, built at :1356). Input D4 [rows, 4(x, y,
 // m, occ), K, W]; output rho [ny, K, W] over the interior rows, 0 in empty
-// slots. The TPU kernel's per-(row, tile) occupancy table only let it skip
-// empty tiles; here an empty slot costs one occupancy load.
+// slots.
 //
-// What bounds it on the H100: memory latency. One thread per (row, slot,
-// column), pairs summed in (dy, dx, slot) order through the pair
-// arithmetic of sph_pair.cuh, which the pair sweep shares, so the two give
-// the same bits; no atomics.
+// What bounds it on the H100: by bytes, one read of the occupancy plane
+// and of the live slots' x, y, m and one write of rho (~8 MB at DAM_BREAK
+// 100k, ~0.003 ms at 3.35 TB/s); by operations, ~12 float32 operations a
+// pair, far below the fp32 rate. A grid is sparse (8% of the slots live at
+// the dam), so a thread per slot spends its loads on empty slots and idles
+// its lanes, and a neighbour's x, y, m would be gathered again by each of
+// the ~50 particles that see it. Once those are gone, what is left is
+// each block's chain of loads and barriers. Staged row by row in a ring, as
+// the sweep stages, every row adds an occupancy load, a gather and three
+// barriers to it; staging the band's rows at once took 15% less time on an
+// H100 at DAM_BREAK 100k (PERF.md).
+//
+// Design: the density stage of pair_sweep.cu on its own, over the staging
+// primitives of stage.cuh, with the band's rows staged at once.
+// - A block owns DN_TILE columns and a band of DN_BAND interior rows, and
+//   stages its DN_ROWS = DN_BAND + 2 rows (a halo row above and below) at
+//   once: all their occupancy loads in flight together, a bit mask per
+//   window cell (the tile plus one halo column a side); a block whose own
+//   cells hold no particle writes zeros and leaves. Then the live slots'
+//   x, y, m of every row, compacted cell by cell in slot order, copied to
+//   shared memory with cp.async, all rows' copies in flight together. An
+//   empty slot is read no further than its occupancy.
+// - Threads take the live particles of the band's rows, not its slots. A
+//   cell's 3x3 neighbourhood in a staged row is one contiguous run of
+//   entries (cells l-1 .. l+1), in (dx, slot) order; sph_pair.cuh's
+//   staged_row_density, the pair sweep's density loop, sums it in (dy, dx,
+//   slot) order: the bits of the sweep's rho.
+// - The band height was timed on an H100 at DAM_BREAK 100k
+//   (scripts/density_band_sweep.py; PERF.md).
+// - Outputs go through shared memory to stores along W.
 #include "sph_pair.cuh"
+#include "stage.cuh"
 
-__global__ void split_density_kernel(const float* __restrict__ d4,
-                                     float* __restrict__ rho, SweepParams P) {
-  long idx;
-  int p, k, c;
-  if (!pair_slot(P, idx, p, k, c)) return;
-  const size_t plane = (size_t)P.K * P.W;
-  const PairPlanes g = {d4, d4 + plane, d4 + 2 * plane, d4 + 3 * plane,
-                        4 * plane};
-  rho[idx] = pair_density(g, p, k, c, P);
+namespace {
+
+constexpr int DN_TILE = 32;              // output columns of a block
+constexpr int DN_BAND = 3;               // interior rows of a block
+constexpr int DN_ROWS = DN_BAND + 2;     // staged rows: one halo a side
+constexpr int DN_WIN = DN_TILE + 2;      // staged columns: one halo a side
+constexpr int DN_THREADS = 256;
+constexpr int DN_PART = 3;               // x, y, m
+constexpr int DN_OCC = 5;                // occupancies a thread holds a row
+static_assert(32 * DN_WIN <= DN_OCC * DN_THREADS, "a row's window at K=32");
+
+// Bytes of shared memory of a block: floats part[ROWS][PART][E],
+// out[BAND][K][TILE], then unsigned mask[ROWS][WIN], int start[ROWS][WIN +
+// 1], then bytes slot[ROWS][E], cell[ROWS][E], with E = K * WIN entries a
+// row (45,604 bytes at K = 16).
+constexpr int density_smem(int K) {
+  return 4 * (DN_ROWS * DN_PART * K * DN_WIN + DN_BAND * K * DN_TILE +
+              DN_ROWS * DN_WIN + DN_ROWS * (DN_WIN + 1)) +
+         2 * DN_ROWS * K * DN_WIN;
+}
+// the most a block may have on Hopper (227 KB), at the largest K
+static_assert(density_smem(32) <= 232448, "shared memory at K = 32");
+
+// A 4-byte copy from global to shared memory that the thread does not wait
+// for; cp_async_wait_all waits for all of the thread's copies.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+}  // namespace
+
+// grid: (column tiles, bands of DN_BAND interior rows); DN_THREADS threads.
+__global__ void __launch_bounds__(DN_THREADS)
+    split_density_kernel(const float* __restrict__ d4,
+                         float* __restrict__ rho_o, SweepParams P) {
+  extern __shared__ __align__(16) float sm[];
+  const int K = P.K, W = P.W, ny = P.rows - 2;
+  const int E = K * DN_WIN;
+  float* part = sm;                                   // [ROWS][PART][E]
+  float* sout = part + DN_ROWS * DN_PART * E;         // [BAND][K][TILE]
+  unsigned* mask = reinterpret_cast<unsigned*>(sout + DN_BAND * K * DN_TILE);
+  int* start = reinterpret_cast<int*>(mask + DN_ROWS * DN_WIN);
+  unsigned char* sslot =
+      reinterpret_cast<unsigned char*>(start + DN_ROWS * (DN_WIN + 1));
+  unsigned char* scell = sslot + DN_ROWS * E;
+
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int c0 = blockIdx.x * DN_TILE;                // first tile column
+  const int cw = c0 - 1;                              // window column 0
+  const int p0 = 1 + blockIdx.y * DN_BAND;
+  const int nb = min(DN_BAND, ny + 1 - p0);           // band rows [p0, p0+nb)
+  const size_t plane = (size_t)K * W;
+  const size_t rs = 4 * plane;
+  const float* occ = d4 + 3 * plane;
+  auto X = [&](int r, int f) { return part + (r * DN_PART + f) * E; };
+
+  // 1. the occupancy of staged rows p0-1 .. p0+nb (row r of the stage is
+  // grid row p0-1+r), all loads in flight together, into bit masks
+  RowOcc<DN_WIN, DN_OCC> ro[DN_ROWS];
+#pragma unroll
+  for (int r = 0; r < DN_ROWS; ++r) {
+    const int q = p0 - 1 + r;
+    ro[r].load(r <= nb + 1 && q < P.rows ? occ + q * rs : nullptr, K, W, cw);
+  }
+  for (int i = tid; i < DN_ROWS * DN_WIN; i += nthr) mask[i] = 0u;
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < DN_ROWS; ++r) ro[r].to_mask(mask + r * DN_WIN);
+  __syncthreads();
+
+  // a block whose own cells hold no particle has only zeros to write
+  bool any = false;
+  for (int i = tid; i < nb * DN_TILE; i += nthr)
+    any = any || mask[(1 + i / DN_TILE) * DN_WIN + 1 + i % DN_TILE] != 0u;
+  if (!__syncthreads_or(any)) {
+    for (int i = tid; i < nb * K * DN_TILE; i += nthr) {
+      const int r = i / (K * DN_TILE), k = (i / DN_TILE) % K;
+      const int c = c0 + i % DN_TILE;
+      if (c >= W) continue;
+      rho_o[(size_t)(p0 + r - 1) * plane + (size_t)k * W + c] = 0.f;
+    }
+    return;
+  }
+
+  // 2. every staged row's live slots, compacted cell by cell in slot order
+  for (int r = 0; r <= nb + 1; ++r) {
+    const int q = p0 - 1 + r;
+    const unsigned* mr = mask + r * DN_WIN;
+    const RowScan s = stage_scan<DN_WIN>(mr, start + r * (DN_WIN + 1));
+    stage_live<DN_WIN>(mr, s, K, cw, [&](int e, int k, int l, int c) {
+      const float* g = d4 + q * rs + (size_t)k * W + c;
+      cp_async4(X(r, 0) + e, g);
+      cp_async4(X(r, 1) + e, g + plane);
+      cp_async4(X(r, 2) + e, g + 2 * plane);
+      sslot[r * E + e] = (unsigned char)k;
+      scell[r * E + e] = (unsigned char)l;
+    });
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 3. densities of the band's rows (stage rows 1 .. nb) in the tile's
+  // cells 1 .. WIN-2
+  for (int r = 1; r <= nb; ++r) {
+    const int* sr = start + r * (DN_WIN + 1);
+    for (int i = sr[1] + tid; i < sr[DN_WIN - 1]; i += nthr) {
+      const int l = scell[r * E + i];
+      const float cx = X(r, 0)[i], cy = X(r, 1)[i];
+      float acc = 0.f;
+      for (int dy = -1; dy <= 1; ++dy)
+        staged_row_density(acc, X(r + dy, 0), X(r + dy, 1), X(r + dy, 2),
+                           start + (r + dy) * (DN_WIN + 1), l, cx, cy, P);
+      sout[((r - 1) * K + sslot[r * E + i]) * DN_TILE + (l - 1)] = acc;
+    }
+  }
+  __syncthreads();
+
+  // 4. the band's outputs along W, 0 in empty slots
+  for (int i = tid; i < nb * K * DN_TILE; i += nthr) {
+    const int r = i / (K * DN_TILE), k = (i / DN_TILE) % K;
+    const int t = i % DN_TILE, c = c0 + t;
+    if (c >= W) continue;
+    const bool live = (mask[(1 + r) * DN_WIN + t + 1] >> k) & 1u;
+    rho_o[(size_t)(p0 + r - 1) * plane + (size_t)k * W + c] =
+        live ? sout[i] : 0.f;
+  }
 }
 
 LPE_EXPORT int lpe_density(const float* d4, float* rho, cudaStream_t stream,
                            const SweepParams* P) {
-  split_density_kernel<<<pair_grid(P), PAIR_BLOCK, 0, stream>>>(d4, rho, *P);
+  if (P->K < 1 || P->K > 32 || P->rows < 3 || P->W < 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = density_smem(P->K);
+  static int smem_set = 0;      // the largest dynamic size allowed so far
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        split_density_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  const int ny = P->rows - 2;
+  const dim3 grid((P->W + DN_TILE - 1) / DN_TILE,
+                  (ny + DN_BAND - 1) / DN_BAND);
+  split_density_kernel<<<grid, DN_THREADS, smem, stream>>>(d4, rho, *P);
   return (int)cudaGetLastError();
 }

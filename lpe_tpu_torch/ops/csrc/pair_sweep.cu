@@ -46,8 +46,9 @@
 //   sph_pair.cuh's pair functions, as the split density and force kernels
 //   do: the results equal density + EOS + force to the bit.
 //   A cell's 3x3 neighbourhood in a staged row is one contiguous run of
-//   entries (cells l-1 .. l+1), already in (dx, slot) order. The force
-//   loop (sph_pair.cuh staged_row_force, which force.cu shares) first
+//   entries (cells l-1 .. l+1), already in (dx, slot) order. The density
+//   loop is sph_pair.cuh's staged_row_density, which density.cu shares;
+//   the force loop (staged_row_force, which force.cu shares) first
 //   marks the run's neighbours within h (~1/3 of them; r^2 by the same
 //   separation()) and spends the costly term (a sqrt and three IEEE
 //   divides) on those alone. Outputs go through shared memory to
@@ -168,16 +169,8 @@ __global__ void __launch_bounds__(SW_THREADS)
         float acc = 0.f;
         for (int dy = -1; dy <= 1; ++dy) {
           const int rn = ring(d + dy);
-          const int* sn = start + rn * (SW_WIN + 1);
-          const float *nx = X(rn, 0), *ny_ = X(rn, 1), *nm = X(rn, 4);
-          const int j1 = sn[l + 2];
-#pragma unroll 4
-          for (int j = sn[l - 1]; j < j1; ++j) {
-            bool ok;
-            const float t =
-                density_term(ok, separation(cx, cy, nx[j], ny_[j]), nm[j], P);
-            if (ok) acc = acc + t;
-          }
+          staged_row_density(acc, X(rn, 0), X(rn, 1), X(rn, 4),
+                             start + rn * (SW_WIN + 1), l, cx, cy, P);
         }
         rho_d[i] = acc;
         rho_d[E + i] =

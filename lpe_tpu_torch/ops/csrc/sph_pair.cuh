@@ -6,20 +6,13 @@
 // summed in the fixed order (dy, dx, slot). The arithmetic of one pair is
 // the functions below (separation, density_term; force_counts, force_term),
 // and every kernel sums their terms in that order, so one input gives one
-// bitwise result, whichever kernel asks. The split density kernel walks
-// the slots of the padded grid (pair_density); the pair sweep and the
-// split force kernel walk the live slots they staged in shared memory
-// (stage.cuh), and share their force loop (staged_row_force).
+// bitwise result, whichever kernel asks. Each kernel walks the live slots
+// it staged in shared memory (stage.cuh) through one loop per sum:
+// staged_row_density (the sweep and the density kernel) and
+// staged_row_force (the sweep and the force kernel).
 #pragma once
 
 #include "common.cuh"
-
-// Particle planes of one row stack [rows, F, K, W]: each pointer is its
-// plane at grid row 0; ``rs`` floats lie between consecutive rows.
-struct PairPlanes {
-  const float *x, *y, *m, *occ;
-  size_t rs;
-};
 
 // The separation (dx, dy) of a particle at (cx, cy) from a neighbour at
 // (nx, ny), and its square r2.
@@ -82,6 +75,22 @@ __device__ __forceinline__ void force_term(float& gx, float& gy,
   gy = gy - f_visc * (cvy - nvy);
 }
 
+// Add the poly6 density terms of a staged particle at (cx, cy) of window
+// cell l from its neighbours in one staged row (stage.cuh: planes x, y, m
+// by entry; window cell l' starts at entry start[l']), self included: the
+// entries start[l - 1] .. start[l + 2] - 1, in (dx, slot) order.
+__device__ __forceinline__ void staged_row_density(
+    float& acc, const float* x, const float* y, const float* m,
+    const int* start, int l, float cx, float cy, const SweepParams& P) {
+  const int j1 = start[l + 2];
+#pragma unroll 4
+  for (int j = start[l - 1]; j < j1; ++j) {
+    bool ok;
+    const float t = density_term(ok, separation(cx, cy, x[j], y[j]), m[j], P);
+    if (ok) acc = acc + t;
+  }
+}
+
 // One staged row of live particles (stage.cuh): their planes by entry and
 // the entry where each window cell starts. The neighbours that a particle
 // of window cell l has in the row are the entries start[l - 1] ..
@@ -121,54 +130,4 @@ __device__ __forceinline__ void staged_row_force(
       fya = fya + gy;
     }
   }
-}
-
-// Poly6 density at slot (p, k, c), self term included; 0 for an empty slot.
-// Neighbour rows p-1 and p+1 must exist (p is an interior row).
-__device__ __forceinline__ float pair_density(const PairPlanes& g, int p,
-                                              int k, int c,
-                                              const SweepParams& P) {
-  const int K = P.K, W = P.W;
-  const size_t at = (size_t)p * g.rs + (size_t)k * W + c;
-  float acc = 0.f;
-  if (g.occ[at] > 0.f) {
-    const float cx = g.x[at];
-    const float cy = g.y[at];
-    for (int dy = -1; dy <= 1; ++dy) {
-      for (int dx = -1; dx <= 1; ++dx) {
-        const int nc = c + dx;
-        if (nc < 0 || nc >= W) continue;
-        const size_t nb = (size_t)(p + dy) * g.rs + nc;
-        for (int k2 = 0; k2 < K; ++k2) {
-          const size_t q = nb + (size_t)k2 * W;
-          if (!(g.occ[q] > 0.f)) continue;
-          bool ok;
-          const float t = density_term(
-              ok, separation(cx, cy, g.x[q], g.y[q]), g.m[q], P);
-          if (ok) acc = acc + t;
-        }
-      }
-    }
-  }
-  return acc;
-}
-
-// The split kernels' layout: one thread per (interior row, slot, column),
-// columns fastest: the flat index of the [ny, K, W] outputs and its slot
-// (p, k, c) of the padded grid.
-__device__ __forceinline__ bool pair_slot(const SweepParams& P, long& idx,
-                                          int& p, int& k, int& c) {
-  idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long)(P.rows - 2) * P.K * P.W) return false;
-  c = (int)(idx % P.W);
-  k = (int)((idx / P.W) % P.K);
-  p = (int)(idx / ((long)P.W * P.K)) + 1;
-  return true;
-}
-
-constexpr int PAIR_BLOCK = 256;
-
-inline unsigned pair_grid(const SweepParams* P) {
-  const long n = (long)(P->rows - 2) * P->K * P->W;
-  return (unsigned)((n + PAIR_BLOCK - 1) / PAIR_BLOCK);
 }

@@ -1,7 +1,7 @@
 // Staging of a grid row's live slots in shared memory, shared by the
 // kernels whose blocks walk the rows of a column tile: the pair sweep
-// (pair_sweep.cu), the split force pass (force.cu) and migrate
-// (migrate.cu).
+// (pair_sweep.cu), the split density and force passes (density.cu,
+// force.cu) and migrate (migrate.cu).
 //
 // A block stages the window of WIN columns (its tile plus halo columns,
 // window cell l at column cw + l) of one row of a stack [rows, F, K, W]:

@@ -28,6 +28,6 @@ def create_scenario(sim_type: SimulationType, seed: int = 0, *,
     if sim_type not in _BUILDERS:
         raise NotImplementedError(
             f"scenario {get_scenario_name(sim_type)} is not ported yet "
-            "(ROADMAP.md Queue 1 item 7: the remaining scenarios)")
+            "(ROADMAP.md Queue 1 item 3: the remaining scenarios)")
     return _BUILDERS[sim_type](seed=seed, device=device, **kw)
 

@@ -1,6 +1,6 @@
 """Benchmark scenes beyond the catalog: the SPH dam break and the rigid
-stacking stress. The galaxy, coupled, highlight and north-star scenes are
-ROADMAP.md Queue 1 item 7."""
+stacking stress. The north-star scene is ROADMAP.md Queue 1 item 1; the
+galaxy, coupled and highlight scenes are item 3."""
 from __future__ import annotations
 
 import math

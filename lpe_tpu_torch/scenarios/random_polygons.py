@@ -3,7 +3,7 @@
 ``build_rigid_stacks`` (``bench_scenes.py``) sizes its solver and universe
 with this scenario's ``make_config``, as ``lpe_tpu`` does. The catalog
 scenario itself runs the rigid list pipeline, which is not ported yet
-(ROADMAP.md Queue 1 item 5).
+(ROADMAP.md Queue 1 item 2).
 
 reference: src/scenarios/random_polygons.cpp:34-216,
 include/scenarios/random_polygons.hpp:14-45.

@@ -33,7 +33,7 @@ def build_system_list(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             spec.max_nonboundary_mass >= bh.small_mass_threshold:
         raise NotImplementedError(
             "N-body gravity (Barnes-Hut / P3M) is not ported yet "
-            "(ROADMAP.md Queue 1 item 9)")
+            "(ROADMAP.md Queue 1 item 4)")
 
     systems = []
 

@@ -135,11 +135,19 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     if mesh is not None:
         raise NotImplementedError(
             "the multi-device fluid path is not ported yet "
-            "(ROADMAP.md Queue 1 item 12)")
+            "(ROADMAP.md Queue 1 item 7)")
     if not spec.liquid_h_uniform:
         raise NotImplementedError(
             "mixed per-particle smoothing lengths are not ported yet "
-            "(ROADMAP.md Queue 1 item 8)")
+            "(ROADMAP.md Queue 1 item 5)")
+    NL = spec.n_liquid
+    K = max(1, min(fc.grid.max_per_cell, NL))
+    if torch.device(device).type == "cuda" and K > SK.MAX_K:
+        raise ValueError(
+            f"fluid.grid.max_per_cell = {fc.grid.max_per_cell} gives {K} "
+            f"slots a cell; the CUDA SPH kernels take at most "
+            f"{SK.MAX_K} (ROADMAP.md Queue 3 item 1 lifts it to 64): "
+            f"lower max_per_cell, or run on the CPU")
     if fc.residency not in ("auto", "on", "off"):
         raise ValueError(f"unknown residency {fc.residency!r}")
     if fc.pair_backend not in ("auto", "sweep", "pallas"):
@@ -151,7 +159,6 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     if fc.grid.cell_size_factor < 1.0:
         raise ValueError("cell_size_factor must be >= 1.0 (3x3 scan needs "
                          "cells at least h wide to cover the r<h support)")
-    NL = spec.n_liquid
     L0 = spec.liquid_start
     NR = L0                       # solids + gas precede liquids in layout
     h = fc.grid.smoothing_length
@@ -168,7 +175,6 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     SPIKY = spiky_coeff_2d(h)
     VISC = visc_laplacian_coeff_2d(h)
     nm = fc.numerical
-    K = max(1, min(fc.grid.max_per_cell, NL))
     nxp = nx + 2
     W = _next_mult(nxp, COL_ALIGN)   # padded grid columns
     rows = ny + 2

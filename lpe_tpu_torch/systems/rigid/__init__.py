@@ -6,7 +6,7 @@
   ``grid_pipeline.make_grid_rigid_system``.
 - Other scenes need ``lpe_tpu``'s list pipeline
   (``lpe_tpu/systems/rigid/pipeline.py``), which is ROADMAP.md Queue 1
-  item 5. The one case ported is a scene whose solids are all boundary
+  item 2. The one case ported is a scene whose solids are all boundary
   walls: the list pipeline's broadphase drops every boundary-boundary pair
   (``pipeline.py:241-244``), so its step leaves every field as it was but
   ``warm_n`` (EPA output for padding pairs, read only for a valid pair,
@@ -32,7 +32,7 @@ def make_rigid(spec, cfg, *, device="cuda"):
             if not bool(state.bodies.boundary[solids].all()):
                 raise NotImplementedError(
                     "rigid bodies other than boundary walls need the rigid "
-                    "list pipeline (ROADMAP.md Queue 1 item 5)")
+                    "list pipeline (ROADMAP.md Queue 1 item 2)")
             checked.append(True)
         return state
 

@@ -10,7 +10,7 @@ dict of per-row tensors: ``pos`` [N, 2], ``angle`` [N], ``verts`` [N, V, 2]
 
 Sums over a vertex ring run in ring order, as ``csrc/narrowphase.cu``
 runs them, so the kernel and this plain version round alike. GJK/EPA and
-the circle branches are ROADMAP.md Queue 1 item 5.
+the circle branches are ROADMAP.md Queue 1 item 2.
 """
 from __future__ import annotations
 
@@ -105,7 +105,7 @@ def sat_contact(sa, sb, any_circle: bool = False):
     if any_circle:
         raise NotImplementedError(
             "circle narrowphase is not ported yet (ROADMAP.md Queue 1 "
-            "item 5)")
+            "item 2)")
     return _sat_poly_poly(*world_verts(sa), *world_verts(sb))
 
 

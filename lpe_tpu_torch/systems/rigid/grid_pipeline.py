@@ -35,7 +35,7 @@ The semantics are lpe_tpu's; the TPU layout is not kept:
   saturation.
 
 Scenes with circle solids, or with ``max_contacts_per_pair != 2``, raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 5); lpe_tpu runs them
+``NotImplementedError`` (ROADMAP.md Queue 1 item 2); lpe_tpu runs them
 through its XLA circle path.
 """
 from __future__ import annotations
@@ -166,7 +166,7 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         raise NotImplementedError(
             "the grid rigid pipeline is ported for polygon scenes with 2 "
             "contacts per pair; circles and other manifolds need the XLA "
-            "circle path (ROADMAP.md Queue 1 item 5)")
+            "circle path (ROADMAP.md Queue 1 item 2)")
     nb = getattr(rc, "narrowphase_backend", "auto")
     if nb not in ("auto", "pallas", "xla"):
         raise ValueError(f"narrowphase_backend={nb!r}")

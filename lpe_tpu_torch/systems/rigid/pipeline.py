@@ -1,7 +1,7 @@
 """Contact generation of one candidate row: the poly-poly branch of
 ``lpe_tpu/systems/rigid/pipeline.py`` ``_pair_contacts``, batched over
 rows. The rest of the list pipeline (broadphase, solvers, the circle
-single-contact cases) is ROADMAP.md Queue 1 item 5."""
+single-contact cases) is ROADMAP.md Queue 1 item 2."""
 from __future__ import annotations
 
 from . import geometry as geo
@@ -16,5 +16,5 @@ def _pair_contacts(sa, sb, normal, pen, max_contacts):
     if max_contacts != 2:
         raise NotImplementedError(
             "contact manifolds other than 2 points are not ported yet "
-            "(ROADMAP.md Queue 1 item 5)")
+            "(ROADMAP.md Queue 1 item 2)")
     return geo.polygon_contacts(sa, sb, normal, max_contacts)

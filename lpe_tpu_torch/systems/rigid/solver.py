@@ -1,7 +1,7 @@
 """Contact-solver helpers: the warm-start lookup of
 ``lpe_tpu/systems/rigid/solver.py`` (``match_warm_impulses``). The list
 pipeline's solvers (``solve_velocity``, ``solve_position``) are ROADMAP.md
-Queue 1 item 5; the grid pipeline runs its own staged solvers."""
+Queue 1 item 2; the grid pipeline runs its own staged solvers."""
 from __future__ import annotations
 
 import torch

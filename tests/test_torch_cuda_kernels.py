@@ -39,7 +39,8 @@ SWEEP = dict(h=H, poly6=4.0 / (np.pi * H ** 8),
 # the multi-block grid of _crowded_st: 3 tiles of 32 columns, the last of
 # 20; migrate's bands of 3 rows (apron rows included) 3 + 3 + 3 + 2, the
 # force pass's one interior row a block, the sweep's bands of 4 interior
-# rows 4 + 4 + 1; crowds on tile and band edges
+# rows 4 + 4 + 1, density's of 3 (3 + 3 + 3; widened by 5 empty rows, 3 +
+# 3 + 3 + 3 + 2); crowds on tile and band edges
 CROWD_ROWS, CROWD_COLS, CROWD_NX = 11, 84, 80
 CROWDS = ((4, 32), (3, 63), (8, 31), (5, 64))
 V = 4                                   # vertex ring of the test rigids
@@ -152,30 +153,34 @@ def _rig_row(px, py, vx, vy, om, mass, inertia, rad, circle, verts):
     return row
 
 
-def _rigids():
+def _rigids(at=(0.0, 0.0)):
     """Small rigids over the particle blob: a square, a triangle and a
-    circle (the rasterized slots) and one long wall (the big table)."""
+    circle (the rasterized slots) and one long wall (the big table); all
+    moved by ``at``."""
+    ox, oy = at
     sq = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]]) * 0.03
     tri = np.array([[0.0, -0.035], [0.03, 0.02], [-0.03, 0.02]])
-    small = [_rig_row(0.13, 0.13, 0.1, -0.2, 0.8, 2.0, 1e-3, 0.04, False, sq),
-             _rig_row(0.21, 0.10, 0.0, 0.1, -1.2, 0.05, 5e-4, 0.035, False,
-                      tri),
-             _rig_row(0.09, 0.22, -0.1, 0.0, 0.3, 1.0, 1e-3, 0.03, True,
-                      None)]
-    wall = _rig_row(0.15, 0.23, 0.0, 0.0, 0.0, 1e30, 0.0, 0.15, False,
-                    np.array([[-0.15, -0.02], [0.15, -0.02], [0.15, 0.02],
-                              [-0.15, 0.02]]))
+    small = [_rig_row(0.13 + ox, 0.13 + oy, 0.1, -0.2, 0.8, 2.0, 1e-3, 0.04,
+                      False, sq),
+             _rig_row(0.21 + ox, 0.10 + oy, 0.0, 0.1, -1.2, 0.05, 5e-4,
+                      0.035, False, tri),
+             _rig_row(0.09 + ox, 0.22 + oy, -0.1, 0.0, 0.3, 1.0, 1e-3, 0.03,
+                      True, None)]
+    wall = _rig_row(0.15 + ox, 0.23 + oy, 0.0, 0.0, 0.0, 1e30, 0.0, 0.15,
+                    False, np.array([[-0.15, -0.02], [0.15, -0.02],
+                                     [0.15, 0.02], [-0.15, 0.02]]))
     return np.stack(small), wall[None]
 
 
-def _raster(small, S=8, slack=CELL):
-    """fld [rows, S, Wp, W] and its (row, slot, column) -> rigid map: the
-    rigids whose slack-widened AABB covers a cell, in table order."""
-    fld = np.zeros((ROWS, S, WP, W), np.float32)
-    body = np.full((ROWS, S, W), -1)
-    for r in range(ROWS):
+def _raster(small, S=8, slack=CELL, rows=ROWS, cols=W, used=NX + 2):
+    """fld [rows, S, Wp, cols] and its (row, slot, column) -> rigid map:
+    the rigids whose slack-widened AABB covers a cell of the first ``used``
+    columns, in table order."""
+    fld = np.zeros((rows, S, WP, cols), np.float32)
+    body = np.full((rows, S, cols), -1)
+    for r in range(rows):
         y0, y1 = (r - 3) * CELL - slack, (r - 2) * CELL + slack
-        for c in range(NX + 2):
+        for c in range(used):
             x0, x1 = (c - 3) * CELL - slack, (c - 2) * CELL + slack
             s = 0
             for j, row in enumerate(small):
@@ -436,17 +441,180 @@ def test_cuda_migrate_and_force_on_a_multi_block_grid(K, full):
     assert {op.name: op.launches for op in SK.OPS} == dict(
         migrate=1, pair_sweep=1, coupling9=0, density=1, force=1, coupling=0)
 
-    def plant(stack, occ_plane):
-        out = stack.clone()
-        empty = out[:, occ_plane] <= 0
-        for f in range(stack.shape[1]):
-            if f != occ_plane:
-                out[:, f][empty] = float("nan")
-        return out
-
-    assert torch.equal(_bits(SK.migrate(plant(st, SK.ST_OCC), **mig)),
+    assert torch.equal(_bits(SK.migrate(_plant_nan(st, SK.ST_OCC), **mig)),
                        _bits(m9))
-    for u, v in zip(SK.force(plant(d8, SK.D8_OCC), **fkw), (fx, fy)):
+    for u, v in zip(SK.force(_plant_nan(d8, SK.D8_OCC), **fkw), (fx, fy)):
+        assert torch.equal(_bits(u), _bits(v))
+
+
+def _pad_slots(stack, K2):
+    """A row stack [rows, F, K, W] with empty slots appended up to K2."""
+    return torch.nn.functional.pad(stack, (0, 0, 0, K2 - stack.shape[2]))
+
+
+def _plant_nan(stack, occ_plane):
+    """``stack`` with NaN in every plane but the occupancy of its empty
+    slots."""
+    out = stack.clone()
+    empty = out[:, occ_plane] <= 0
+    for f in range(stack.shape[1]):
+        if f != occ_plane:
+            out[:, f][empty] = float("nan")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, full, empty_tiles", [
+    (16, False, False), (16, False, True), (32, True, False),
+    (32, True, True)])
+def test_cuda_staged_density_on_a_multi_block_grid(K, full, empty_tiles):
+    """The staged density kernel on the crowded grid of several tiles and
+    bands (with ``empty_tiles``, widened by empty tiles and bands, whose
+    blocks write zeros and leave): within rtol 1e-5 of density_plain on the
+    occupied slots (pairs reassociate against the plain version's order),
+    0 in every empty slot, and to the bit the pair sweep's rho (one loop,
+    staged_row_density). NaN in x, y and m of D4's empty slots changes no
+    output bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    st = torch.from_numpy(_crowded_st(K, full=full)).cuda()
+    m9 = SK.migrate(st, **dict(MIG, nx=CROWD_NX))
+    if empty_tiles:       # two more tiles of columns and 5 more rows
+        m9 = torch.nn.functional.pad(m9, (0, 64, 0, 0, 0, 0, 0, 5))
+    x, y, vx, vy, m, occ = m9.unbind(1)[:6]
+    d4 = torch.stack([x, y, m, occ], 1)
+    dkw = dict(h=H, poly6=SWEEP["poly6"])
+    SK.reset_counters()
+    rho = SK.density(d4, **dkw)
+    assert SK.density.launches == 1
+    inner = occ[1:-1] > 0
+    np.testing.assert_allclose(rho.cpu().numpy()[inner.cpu().numpy()],
+                               SK.density_plain(d4, **dkw).cpu().numpy()
+                               [inner.cpu().numpy()], rtol=1e-5)
+    assert float(rho[~inner].abs().max()) == 0.0
+    assert torch.equal(_bits(rho), _bits(SK.pair_sweep(m9, **SWEEP)[0]))
+    assert torch.equal(_bits(SK.density(_plant_nan(d4, 3), **dkw)),
+                       _bits(rho))
+
+
+@pytest.mark.cuda
+def test_cuda_couplings_at_k32():
+    """The coupling kernel at K = 32 (the seeded sub-step with its slots
+    padded from 16 to 32; a block of 1024 threads) against coupling_plain,
+    on cells that copy through (cpl 0, as on the dam's main path) and on
+    cells that couple with the test rigids (cpl 1 on occupied cells), at
+    the tolerances of test_cuda_split_kernels_match_plain: its outputs
+    equal the K = 16 kernel's in slots 0-15 and PL and bigp to the bit
+    (empty slots sum as +0), and coupling9 on the same sub-step gives the
+    same bits. NaN in every plane but the occupancy of D10's empty slots
+    reaches only those slots' own outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    pad = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
+    m9 = SK.migrate(torch.from_numpy(_make_st()).cuda(), **MIG)
+    small, wall = _rigids()
+    fld = torch.from_numpy(_raster(small)[0]).cuda()
+    big = torch.from_numpy(np.concatenate(
+        [wall, np.zeros((1, WP), np.float32)])).cuda()
+    cn = dict(_cn(), V=V, half_dt=HALF_DT, stiffness=FC.stiffness)
+    coupled = (m9[:, SK.M9_OCC].sum(1) > 0).to(torch.int32).contiguous()
+    d10s = {}
+    for k2 in (K, 32):
+        x, y, vx, vy, m, occ, hx, hy, pid = _pad_slots(m9, k2).unbind(1)
+        sw = SK.pair_sweep(_pad_slots(m9, k2), **SWEEP)
+        rho, fx, fy = (pad(v) for v in sw)
+        pe = torch.clamp(FC.stiffness * (rho - FC.rest_density), min=0.0)
+        d10s[k2] = torch.stack([x, y, hx + HALF_DT * fx, hy + HALF_DT * fy,
+                                rho, pe, m, occ, fx, fy], 1)
+    d10 = d10s[32]
+    empty = d10[:, SK.D10_OCC] <= 0
+    for cpl in (torch.zeros_like(coupled), coupled):
+        args = [cpl, fld, big, d10]
+        out = SK.coupling(*args, cn=cn)
+        ref = SK.coupling_plain(*args, cn=cn)
+        a_scale = float(torch.stack(ref[4:6]).abs().max())
+        for f, (u, v) in enumerate(zip(out, ref)):
+            atol = max(1e-5, 1e-6 * a_scale) if f in (4, 5) else 1e-5
+            torch.testing.assert_close(u.cpu(), v.cpu(), rtol=0, atol=atol)
+        out16 = SK.coupling(cpl, fld, big, d10s[K], cn=cn)
+        st9, pl9, bigp9 = SK.coupling9(cpl, fld, big, _pad_slots(m9, 32),
+                                       *sw, cn=cn)
+        ref9 = torch.stack([*out[:6], m, pid, occ], 1)
+        ref9[0] = ref9[-1] = 0.0
+        for u, v in ((st9, ref9), (pl9, out[6]), (bigp9, out[7])):
+            assert torch.equal(_bits(u), _bits(v))
+        for u, v in zip(out[:6], out16[:6]):
+            assert torch.equal(_bits(u[:, :K]), _bits(v))
+        for u, v in zip(out[6:], out16[6:]):
+            assert torch.equal(_bits(u), _bits(v))
+        out_n = SK.coupling(cpl, fld, big, _plant_nan(d10, SK.D10_OCC),
+                            cn=cn)
+        for u, v in zip(out_n[:6], out[:6]):
+            live = ~empty
+            live[0] = live[-1] = True                 # apron rows: zero
+            assert torch.equal(_bits(u[live]), _bits(v[live]))
+            assert bool(torch.isnan(u[~live]).all())
+        for u, v in zip(out_n[6:], out[6:]):
+            assert torch.equal(_bits(u), _bits(v))
+    assert float(out[6].abs().max()) > 1e-3          # the coupled cells
+
+
+@pytest.mark.cuda
+def test_cuda_couplings_on_full_cells_at_k32():
+    """coupling and coupling9 at K = 32 on the crowded multi-block grid
+    with its 3x3 block of full cells (32 live slots each, so every warp of
+    those blocks lists live particles), the test rigids moved over that
+    block and cpl 1 on every occupied cell: coupling within the tolerances
+    of test_cuda_split_kernels_match_plain of coupling_plain, particles of
+    slots 16-31 moved by the rigids, and coupling9 on the same sub-step
+    with the same bits. NaN in every plane but the occupancy of D10's empty
+    slots reaches only those slots' own outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    pad = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
+    K2 = 32
+    st = torch.from_numpy(_crowded_st(K2, full=True)).cuda()
+    m9 = SK.migrate(st, **dict(MIG, nx=CROWD_NX))
+    x, y, vx, vy, m, occ, hx, hy, pid = m9.unbind(1)
+    assert int((occ[:, K:] > 0).sum()) >= 9 * (K2 - K)   # full cells kept
+    # the full block spans x in [28, 31) and y in [1, 4) cells
+    small, wall = _rigids(at=(29.5 * CELL - 0.15, 2.5 * CELL - 0.16))
+    fld = torch.from_numpy(_raster(small, rows=CROWD_ROWS, cols=CROWD_COLS,
+                                   used=CROWD_NX + 2)[0]).cuda()
+    big = torch.from_numpy(np.concatenate(
+        [wall, np.zeros((1, WP), np.float32)])).cuda()
+    cn = dict(_cn(), V=V, half_dt=HALF_DT, stiffness=FC.stiffness)
+    sw = SK.pair_sweep(m9, **SWEEP)
+    rho, fx, fy = (pad(v) for v in sw)
+    pe = torch.clamp(FC.stiffness * (rho - FC.rest_density), min=0.0)
+    d10 = torch.stack([x, y, hx + HALF_DT * fx, hy + HALF_DT * fy, rho, pe,
+                       m, occ, fx, fy], 1)
+    cpl = (occ.sum(1) > 0).to(torch.int32).contiguous()
+    SK.reset_counters()
+    out = SK.coupling(cpl, fld, big, d10, cn=cn)
+    ref = SK.coupling_plain(cpl, fld, big, d10, cn=cn)
+    a_scale = float(torch.stack(ref[4:6]).abs().max())
+    for f, (u, v) in enumerate(zip(out, ref)):
+        atol = max(1e-5, 1e-6 * a_scale) if f in (4, 5) else 1e-5
+        torch.testing.assert_close(u.cpu(), v.cpu(), rtol=0, atol=atol)
+    live = occ > 0
+    moved = ((out[0] != x) | (out[1] != y)) & live
+    assert int(moved[:, K:].sum()) > 0                # slots 16-31 coupled
+    assert float(out[6].abs().max()) > 1e-3 and float(out[7].abs().max()) > 0
+    st9, pl9, bigp9 = SK.coupling9(cpl, fld, big, m9, *sw, cn=cn)
+    ref9 = torch.stack([*out[:6], m, pid, occ], 1)
+    ref9[0] = ref9[-1] = 0.0
+    for u, v in ((st9, ref9), (pl9, out[6]), (bigp9, out[7])):
+        assert torch.equal(_bits(u), _bits(v))
+    assert {op.name: op.launches for op in SK.OPS} == dict(
+        migrate=0, pair_sweep=0, coupling9=1, density=0, force=0, coupling=1)
+    out_n = SK.coupling(cpl, fld, big, _plant_nan(d10, SK.D10_OCC), cn=cn)
+    keep = live.clone()
+    keep[0] = keep[-1] = True                         # apron rows: zero
+    for u, v in zip(out_n[:6], out[:6]):
+        assert torch.equal(_bits(u[keep]), _bits(v[keep]))
+        assert bool(torch.isnan(u[~keep]).all())
+    for u, v in zip(out_n[6:], out[6:]):
         assert torch.equal(_bits(u), _bits(v))
 
 

@@ -333,5 +333,5 @@ def test_circle_grid_scene_is_refused():
     from lpe_tpu_torch.systems import build_tick_fn
     sc = _grid_scene("torch", circles=2)
     assert sc.spec.any_rigid_circle
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         build_tick_fn(sc.spec, sc.cfg, device="cpu")

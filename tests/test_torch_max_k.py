@@ -1,0 +1,81 @@
+"""Cells of more than 32 slots. The CUDA SPH kernels keep one cell's K slots
+in one warp (``ops/sph_kernels.MAX_K``), so on the card
+``make_fluid_system`` refuses a larger K when it builds, before it touches
+CUDA (these tests run without a card). On the CPU the plain versions take
+any K, as lpe_tpu does: a scene with 40 particles in one cell at
+``max_per_cell=48`` matches lpe_tpu's resident XLA path at the JAX
+package's tolerances (tests/test_sph.py)."""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+
+from lpe_tpu_torch.ops import sph_kernels as SK
+from test_torch_fluid_slice import assert_fluid_close, to_port, xla_resident
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+CROWD = 40           # particles in one cell, more than MAX_K
+
+
+def with_max_per_cell(cfg, k):
+    return cfg.replace(fluid=dataclasses.replace(
+        cfg.fluid, grid=dataclasses.replace(cfg.fluid.grid, max_per_cell=k)))
+
+
+@pytest.mark.parametrize("max_per_cell", [SK.MAX_K + 1, 48, 64])
+@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+def test_cuda_build_refuses_more_slots_than_the_kernels_take(max_per_cell,
+                                                             device):
+    from lpe_tpu_torch.scenarios import create_scenario
+    from lpe_tpu_torch.systems.fluid import make_fluid
+    sc = create_scenario("SIMPLE_FLUID", seed=0, device="cpu")
+    cfg = with_max_per_cell(sc.cfg, max_per_cell)
+    with pytest.raises(ValueError, match=(
+            rf"fluid\.grid\.max_per_cell = {max_per_cell} gives "
+            rf"{max_per_cell} slots a cell; the CUDA SPH kernels take at "
+            rf"most {SK.MAX_K} \(ROADMAP\.md Queue 3 item 1")):
+        make_fluid(sc.spec, cfg, device=device)
+
+
+def crowd_scene(n_blob=40, universe=1.5, seed=5):
+    """lpe_tpu's walled blob (test_torch_fluid_slice.blob_scene) with
+    CROWD more particles at rest inside one grid cell, at max_per_cell 48."""
+    from lpe_tpu.core.config import (FluidConfig, ScenarioSystemConfig,
+                                     SharedSystemConfig)
+    from lpe_tpu.core.constants import Phase
+    from lpe_tpu.scene import SceneBuilder
+    fc = FluidConfig()
+    cfg = with_max_per_cell(ScenarioSystemConfig(
+        shared=SharedSystemConfig(universe_size_m=universe), fluid=fc), 48)
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder("crowd")
+    b.add_wall(universe / 2, 0.05, universe / 2, 0.04)
+    for _ in range(n_blob):
+        b.add(pos=tuple(rng.uniform(universe * 0.3, universe * 0.7, 2)),
+              vel=tuple(rng.uniform(-0.4, 0.4, 2)), mass=0.005,
+              phase=int(Phase.LIQUID), radius=0.02)
+    h = fc.grid.smoothing_length          # the cell size (factor 1)
+    centre = np.array([11.5, 12.5]) * h
+    for _ in range(CROWD):
+        b.add(pos=tuple(centre + rng.uniform(-0.4 * h, 0.4 * h, 2)),
+              vel=(0.0, 0.0), mass=0.005, phase=int(Phase.LIQUID),
+              radius=0.02)
+    return b.finalize(cfg)
+
+
+def test_cpu_builds_48_slots_and_matches_lpe_tpu():
+    from lpe_tpu.systems.fluid import make_fluid as jmake
+    from lpe_tpu_torch.systems.fluid import make_fluid
+    sc = crowd_scene()
+    spec, cfg, state = to_port(sc)
+    pstep = make_fluid(spec, cfg, device="cpu")
+    occ = pstep.grid_build(state)["occ"]
+    assert occ.shape[1] == 48
+    assert int(occ.sum(1).max()) == CROWD
+    jstep = jax.jit(jmake(sc.spec, xla_resident(sc.cfg)))
+    s_j, s_p = sc.state, state
+    for _ in range(2):
+        s_j = jstep(s_j)
+        s_p = pstep(s_p)
+    assert_fluid_close(sc.spec, s_j, s_p, sc.state)

@@ -1,13 +1,13 @@
-"""The argument checks of the CUDA wrappers of the three staged kernels
-(the pair sweep, migrate and the split force pass), on the CPU: they raise
-before anything is built or launched, and on a CPU tensor each op runs its
-plain version. The launches themselves (32-column tiles, bands of rows,
-shared memory) are sized in csrc/pair_sweep.cu, migrate.cu and force.cu,
-each of which holds its shared memory at K = 32 under the 227 KB a Hopper
-block may have at compile time. test_torch_cuda_kernels.py and
-chip_smoke.py hold the kernels against their plain versions and their
-twins to the bit on the card, on grids whose last band and last tile are
-short."""
+"""The argument checks of the CUDA wrappers of the four staged kernels
+(the pair sweep, migrate and the split density and force passes), on the
+CPU: they raise before anything is built or launched, and on a CPU tensor
+each op runs its plain version. The launches themselves (32-column tiles,
+bands of rows, shared memory) are sized in csrc/pair_sweep.cu, migrate.cu,
+density.cu and force.cu, each of which holds its shared memory at K = 32
+under the 227 KB a Hopper block may have at compile time.
+test_torch_cuda_kernels.py and chip_smoke.py hold the kernels against
+their plain versions and their twins to the bit on the card, on grids
+whose last band and last tile are short."""
 import numpy as np
 import pytest
 import torch
@@ -25,6 +25,7 @@ MIG = dict(nx=4, half_dt=1e-3, sub_dt=2e-3, lim=0.045, cell=0.1, eps=1e-6,
 STAGED = {   # op -> (its CUDA wrapper, planes of its input, its constants)
     "pair_sweep": (SK._pair_sweep_cuda, 9, SWEEP),
     "migrate": (SK._migrate_cuda, 9, MIG),
+    "density": (SK._density_cuda, 4, dict(h=0.1, poly6=SWEEP["poly6"])),
     "force": (SK._force_cuda, 8, FORCE),
 }
 
@@ -34,12 +35,12 @@ STAGED = {   # op -> (its CUDA wrapper, planes of its input, its constants)
     (6, 0, 0, "K must be in"),                 # no slot
     (6, 0, 33, "K must be in"),                # more slots than a mask
     (3, 0, 16, "rows >= 4"),                   # fewer than two interior rows
-    (6, -1, 16, r"expected \[rows, [89]"),     # a stack of the wrong planes
+    (6, -1, 16, r"expected \[rows, {planes}"),  # a stack of the wrong planes
 ])
 def test_staged_wrapper_refuses_a_grid_it_cannot_launch(name, rows, dplanes,
                                                         K, match):
     wrapper, planes, kw = STAGED[name]
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match=match.format(planes=planes)):
         wrapper(torch.zeros((rows, planes + dplanes, K, 8)), **kw)
 
 
@@ -87,6 +88,12 @@ def test_staged_op_on_the_cpu_runs_its_plain_version(name):
         # a particle at rest stays in its cell, in slot 0
         assert float(m9[:, SK.M9_OCC].sum()) == float(m9[2, SK.M9_OCC, 0, 3])
         assert float(m9[2, SK.M9_M, 0, 3]) == float(st[2, SK.ST_M, 0, 3])
+    elif name == "density":
+        rho = op(_one_particle(4, 3, 2), **kw)       # D4: x, y, m, occ
+        # a lone particle's density is its self term
+        assert rho.shape == (4, 16, 8)
+        assert float(rho[1, 0, 3]) > 0.0 and float(rho.abs().sum()) == \
+            float(rho[1, 0, 3])
     else:
         d8 = _one_particle(8, SK.D8_OCC, SK.D8_M)
         d8[2, SK.D8_RHO, 0, 3] = 1.0

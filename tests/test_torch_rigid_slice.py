@@ -64,5 +64,5 @@ def test_rigid_step_refuses_dynamic_polygons():
           inertia=calculate_polygon_inertia(verts, 1.0), has_sleep=True)
     sc = b.finalize(ScenarioSystemConfig(), device="cpu")
     step = make_rigid(sc.spec, sc.cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         step(sc.state)

@@ -112,15 +112,15 @@ def test_port_never_imports_jax():
 def test_out_of_slice_configurations_raise():
     from lpe_tpu_torch.scenarios import create_scenario
     from lpe_tpu_torch.systems.fluid import make_fluid
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         create_scenario("GALTON_BOARD", seed=0, device="cpu")
     sc = create_scenario("SIMPLE_FLUID", seed=0, device="cpu")
     for kw in (dict(pair_backend="xla"), dict(residency="sometimes")):
         cfg = sc.cfg.replace(fluid=dataclasses.replace(sc.cfg.fluid, **kw))
         with pytest.raises(ValueError, match=next(iter(kw))):
             make_fluid(sc.spec, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         make_fluid(sc.spec, sc.cfg, device="cpu", mesh=object())
     spec = dataclasses.replace(sc.spec, liquid_h_uniform=False)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         make_fluid(spec, sc.cfg, device="cpu")
