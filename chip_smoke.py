@@ -106,6 +106,8 @@ KERNEL_INFO = {   # name -> (CUDA source, the Pallas kernel it replaces)
                   "lpe_tpu/ops/pallas_sph.py:664"),
     "narrowphase": ("lpe_tpu_torch/ops/csrc/narrowphase.cu",
                     "lpe_tpu/ops/pallas_rigid.py:47"),
+    "narrowphase_grid": ("lpe_tpu_torch/ops/csrc/narrowphase_grid.cu",
+                         "lpe_tpu/ops/pallas_rigid.py:47"),
     "coupling": ("lpe_tpu_torch/ops/csrc/coupling.cu",
                  "lpe_tpu/ops/pallas_sph.py:554"),
     "density": ("lpe_tpu_torch/ops/csrc/density.cu",
@@ -117,6 +119,9 @@ KERNEL_INFO = {   # name -> (CUDA source, the Pallas kernel it replaces)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 L2_FLUSH_BYTES = 256 << 20     # written between timed calls: 5x the L2
+# the card spins this many cycles (~0.5 ms) after the flush, before a timed
+# call starts, so that the host has queued the call's kernels by then
+HOST_SLACK_CYCLES = 1_000_000
 # bodies beyond a cell's slots at tick 40 (lpe_tpu on the CPU: 0.0232)
 RIGID_MAX_DROP = 0.05
 # operation counts of the work, per unit of this run's data (estimates from
@@ -149,8 +154,11 @@ def cuda_ms(fn, reps: int = 20, cold: bool = True) -> float:
     """Mean ms of ``fn`` on the card by CUDA events, after 3 warm-up calls.
     ``cold``: each call timed alone, after writing L2_FLUSH_BYTES so that
     the L2 cache holds none of its inputs, as in a tick, where the kernels
-    before it have moved more than L2 holds; else ``reps`` calls back to
-    back, whose inputs may stay in L2 (50 MB on the H100)."""
+    before it have moved more than L2 holds, and after HOST_SLACK_CYCLES,
+    so that the time is the card's alone, not the host's wrapper code;
+    else ``reps`` calls back to back, whose inputs may stay in L2 (50 MB on
+    the H100) and whose time follows the host where its wrapper code takes
+    longer than the kernel."""
     import torch
     for _ in range(3):
         fn()
@@ -170,6 +178,7 @@ def cuda_ms(fn, reps: int = 20, cold: bool = True) -> float:
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for t0, t1 in ev:
         _flush[0].zero_()
+        torch.cuda._sleep(HOST_SLACK_CYCLES)
         t0.record()
         fn()
         t1.record()
@@ -198,6 +207,26 @@ def same_bits_or_nan(a, b) -> bool:
     na, nb = torch.isnan(a), torch.isnan(b)
     return bool(torch.equal(na, nb)) and \
         same_bits(torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
+
+
+def tensor_bits_equal(a, b) -> bool:
+    """Float32 tensors: same_bits_or_nan; any other: torch.equal."""
+    import torch
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return same_bits_or_nan(a, b)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def state_fields(a, b, part=""):
+    """(name, field of a, field of b) for the tensor fields of two states
+    (``part`` "bodies": of their bodies)."""
+    import dataclasses
+    import torch
+    if part:
+        a, b = getattr(a, part), getattr(b, part)
+    return [(f"{part}.{f.name}".lstrip("."), getattr(a, f.name),
+             getattr(b, f.name)) for f in dataclasses.fields(a)
+            if isinstance(getattr(a, f.name), torch.Tensor)]
 
 
 # planes of a live slot that each staged kernel reads besides its
@@ -634,6 +663,189 @@ def check_kernels(dev):
         fail("the couplings at K = 32 with live slots 16-31 disagree or "
              "coupled no particle there")
 
+    def cpl_ops(c, live=occ):
+        """Operations of the candidate math on the particles of ``live``
+        [rows, K, cols] that couple (cpl ``c`` > 0)."""
+        live_c = live & (c > 0)[:, None, :]
+        return float(live_c.sum()) * (1 + len(sc.spec.solid_big_idx)) \
+            * (CPL_OPS_PER_VERT * ck["V"] + CPL_OPS)
+
+    # K = 64, the reference's cap and the kernels' largest: the same
+    # sub-step with its slots padded from 16 to 64. Each of the six kernels
+    # to the bit its K = 16 outputs in slots 0-15 (migrate: each target
+    # cell's first 16 candidates, to the bit its plain version too; slots
+    # 16-63 take those that K = 16 drops), 0 in slots 16-63 of the pair
+    # kernels' outputs, the couplings' PL and bigp (empty slots add +0);
+    # the couplings against their plain versions
+    pad64 = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 64 - K))
+    ST64 = pad64(ST)
+    M964 = SK.migrate(ST64, **mk)
+    k64_ok = same_bits(M964, SK.migrate_plain(ST64, **mk)) and \
+        same_bits(M964[:, :, :K], M9)
+    outs64 = (*SK.pair_sweep(pad64(M9), **sk), SK.density(pad64(D4), **dk),
+              *SK.force(pad64(D8), **fk))
+    for u, v in zip(outs64, (*sw, rho, *frc)):
+        k64_ok = k64_ok and same_bits(u[:, :K], v) and \
+            float(u[:, K:].abs().max()) == 0.0
+    for name, op, tail in (("coupling9", SK.coupling9,
+                            (pad64(M9), *map(pad64, sw))),
+                           ("coupling", SK.coupling, (pad64(D10),))):
+        for cname, cand in cands.items():
+            out64, err, _ = check_couple(name, f"{cname}, K = 64", op,
+                                         (*cand, *tail))
+            errs[name] = max(errs[name], err)
+            ref = outs[name, cname]
+            k64_ok = k64_ok and all(same_bits(u, v) for u, v in zip(
+                slots[name](out64), slots[name](ref))) and \
+                all(same_bits(u, v) for u, v in zip(out64[-2:], ref[-2:]))
+    twins["k64_equals_k16"] = k64_ok
+    print(f"all six kernels at K = 64 (slots padded): slots 0-15, PL and "
+          f"bigp bitwise equal to K = 16, slots 16-63 of the pair kernels "
+          f"zero {k64_ok}", flush=True)
+    if not k64_ok:
+        fail("a kernel at K = 64 differs from K = 16")
+
+    # K = 64 with live particles in slots 32-63: each cell takes the slots
+    # of four neighbouring columns (cols 288 -> 72), so its cells hold up to
+    # 64 particles and a coupling thread may list one in each of its two
+    # slots. Each kernel against its plain version: migrate to the bit, the
+    # pair kernels at the tolerances above (rho rel 1e-5; forces 1e-5 of
+    # themselves plus 1e-6 of their scale), the couplings with the
+    # partials' term for 64 live slots a cell; and the twins to the bit:
+    # the sweep against density + EOS + force, coupling9 against coupling
+    def fold4(t):
+        """[..., 16, W] -> [..., 64, W / 4]: cell c takes the slots of
+        columns 4c .. 4c + 3 in that order."""
+        *lead, k, w = t.shape
+        return t.reshape(*lead, k, w // 4, 4).movedim(-1, -3) \
+            .reshape(*lead, 4 * k, w // 4).contiguous()
+
+    if W % 4:
+        fail(f"cannot fold {W} columns in quads")
+    W4 = W // 4
+    pad_rows = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
+    ST4, M94, sw4, D104 = fold4(ST), fold4(M9), [fold4(v) for v in sw], \
+        fold4(D10)
+    mk4 = dict(mk, nx=W4 - 2)
+    x4, y4, vx4, vy4, m4, oc4 = M94.unbind(1)[:6]
+    D44 = torch.stack([x4, y4, m4, oc4], 1)
+    rho4 = SK.density(D44, **dk)
+    rp4 = pad_rows(rho4)
+    D84 = torch.stack([x4, y4, vx4, vy4, m4, rp4, fl.eos(rp4), oc4], 1)
+    got4 = {"migrate": SK.migrate(ST4, **mk4),
+            "pair_sweep": SK.pair_sweep(M94, **sk), "density": rho4,
+            "force": SK.force(D84, **fk)}
+    ref4 = {"migrate": SK.migrate_plain(ST4, **mk4),
+            "pair_sweep": SK.pair_sweep_plain(M94, **sk),
+            "density": SK.density_plain(D44, **dk),
+            "force": SK.force_plain(D84, **fk)}
+    o4 = (oc4 > 0)[1:-1]
+    fscale4 = float(torch.stack(ref4["pair_sweep"][1:]).abs().max())
+
+    def rel4(a, b):
+        return float(((a - b).abs() / b.abs().clamp(min=1e-30))[o4].max())
+
+    def misses4(out, ref):
+        return sum(int(((a - b).abs() > 1e-5 * b.abs() + 1e-6 * fscale4)
+                       .sum()) for a, b in zip(out, ref))
+
+    pair4 = {"migrate": same_bits(got4["migrate"], ref4["migrate"]),
+             "pair_sweep": rel4(got4["pair_sweep"][0],
+                                ref4["pair_sweep"][0]) <= 1e-5 and
+             misses4(got4["pair_sweep"][1:], ref4["pair_sweep"][1:]) == 0,
+             "density": rel4(rho4, ref4["density"]) <= 1e-5,
+             "force": misses4(got4["force"], ref4["force"]) == 0}
+    tup = lambda x: (x,) if torch.is_tensor(x) else tuple(x)
+    for name in pair4:
+        errs[name] = max(errs[name], *(max_err(u, v) for u, v in zip(
+            tup(got4[name]), tup(ref4[name]))))
+    fold4_ok = all(same_bits(a, b) for a, b in zip(
+        got4["pair_sweep"], (rho4, *got4["force"])))
+    n4 = int((oc4 > 0).sum())
+    folded4 = {n: (c.reshape(rows, W4, 4).amax(-1).contiguous(),
+                   f[..., 0::4].contiguous(), b)
+               for n, (c, f, b) in cands.items()}
+    upper4 = (D104[:, SK.D10_OCC, 2 * K:] > 0) & \
+        (folded4["wall"][0] > 0)[:, None]
+    outc4 = {}
+    for cname, cand in folded4.items():
+        o9, err9, _ = check_couple("coupling9", f"{cname}, K = 64 folded",
+                                   SK.coupling9, (*cand, M94, *sw4), 4 * K)
+        oc, errc, _ = check_couple("coupling", f"{cname}, K = 64 folded",
+                                   SK.coupling, (*cand, D104), 4 * K)
+        errs["coupling9"] = max(errs["coupling9"], err9)
+        errs["coupling"] = max(errs["coupling"], errc)
+        st_c = torch.stack([*oc[:6], M94[:, SK.M9_M], M94[:, SK.M9_ID],
+                            M94[:, SK.M9_OCC]], 1)
+        st_c[0] = st_c[-1] = 0.0
+        fold4_ok = fold4_ok and same_bits(o9[0], st_c) and \
+            same_bits(o9[1], oc[6]) and same_bits(o9[2], oc[7])
+        outc4[cname] = oc
+    xw, yw = outc4["wall"][:2]
+    moved4 = ((xw != D104[:, SK.D10_X]) | (yw != D104[:, SK.D10_Y])) \
+        [:, 2 * K:] & upper4
+    twins["k64_full_slots"] = fold4_ok
+    print(f"all six kernels at K = 64 (column quads folded): {n4} "
+          f"particles, up to {int((oc4 > 0).sum(1).max())} in a cell; "
+          f"against their plain versions {pair4} (migrate to the bit); "
+          f"pair sweep = density + EOS + force and coupling9 = coupling to "
+          f"the bit {fold4_ok}; {int(upper4.sum())} coupled particles in "
+          f"slots 32-63, {int(moved4.sum())} of them moved by the wall",
+          flush=True)
+    if not all(pair4.values()) or not fold4_ok or int(moved4.sum()) == 0:
+        fail("the kernels at K = 64 with live slots 32-63 disagree with "
+             "their plain versions or twins, or coupled no particle there")
+
+    # the six kernels' times at K = 64 on the folded inputs
+    main94 = (*folded4["main"], M94, *sw4)
+    main104 = (*folded4["main"], D104)
+    calls64 = {
+        "migrate": (lambda: SK.migrate(ST4, **mk4),
+                    lambda: SK.migrate_plain(ST4, **mk4)),
+        "pair_sweep": (lambda: SK.pair_sweep(M94, **sk),
+                       lambda: SK.pair_sweep_plain(M94, **sk)),
+        "coupling9": (lambda: SK.coupling9(*main94, cn=ck),
+                      lambda: SK.coupling9_plain(*main94, cn=ck)),
+        "density": (lambda: SK.density(D44, **dk),
+                    lambda: SK.density_plain(D44, **dk)),
+        "force": (lambda: SK.force(D84, **fk),
+                  lambda: SK.force_plain(D84, **fk)),
+        "coupling": (lambda: SK.coupling(*main104, cn=ck),
+                     lambda: SK.coupling_plain(*main104, cn=ck)),
+    }
+    occ4m = M94[:, SK.M9_OCC] > 0
+    pairs4 = neighbour_pairs(occ4m.to(torch.int32))
+    bounds64 = {
+        "migrate": bound(slot_bytes("migrate", ST4[:, SK.ST_OCC],
+                                    (got4["migrate"],)),
+                         MIGRATE_OPS * float((ST4[:, SK.ST_OCC] > 0).sum())),
+        "pair_sweep": bound(slot_bytes("pair_sweep", M94[:, SK.M9_OCC],
+                                       got4["pair_sweep"]),
+                            PAIR_OPS * pairs4),
+        "coupling9": bound(coupling9_bytes(*main94[:4],
+                                           calls64["coupling9"][0]()),
+                           cpl_ops(main94[0], occ4m)),
+        "density": bound(slot_bytes("density", D44[:, 3], (rho4,)),
+                         DENSITY_OPS * pairs4),
+        "force": bound(slot_bytes("force", D84[:, SK.D8_OCC],
+                                  got4["force"]), FORCE_OPS * pairs4),
+        "coupling": bound(coupling_bytes(*main104,
+                                         calls64["coupling"][0]()),
+                          cpl_ops(main104[0], occ4m)),
+    }
+    k64 = {}
+    for name, (kern, plain) in calls64.items():
+        k64[name] = dict(ms=cuda_ms(kern), warm_ms=cuda_ms(kern, cold=False),
+                         plain_ms=cuda_ms(plain, 5),
+                         bound_ms=bounds64[name][0],
+                         bound_by=bounds64[name][1])
+        print(f"kernel {name} at K = 64 (folded, main path candidates): "
+              f"kernel {k64[name]['ms']:.4f} ms "
+              f"({k64[name]['warm_ms']:.4f} warm)  plain "
+              f"{k64[name]['plain_ms']:.4f} ms  bound "
+              f"{k64[name]['bound_ms']:.4f} ms ({k64[name]['bound_by']})",
+              flush=True)
+
     main9 = (*cands["main"], M9, *sw)
     wall9 = (*cands["wall"], M9, *sw)
     main10 = (*cands["main"], D10)
@@ -661,12 +873,6 @@ def check_kernels(dev):
     warm = {name: cuda_ms(k, cold=False) for name, (k, _) in calls.items()}
     n_occ = float(occ.sum())
     pairs = neighbour_pairs(occ.to(torch.int32))
-
-    def cpl_ops(c):
-        """Operations of the candidate math on the particles that couple."""
-        live_c = occ & (c > 0)[:, None, :]
-        return float(live_c.sum()) * (1 + len(sc.spec.solid_big_idx)) \
-            * (CPL_OPS_PER_VERT * ck["V"] + CPL_OPS)
 
     cpl, live = cands["main"][0], cands["wall"][0]
     bounds = {
@@ -699,7 +905,7 @@ def check_kernels(dev):
               f"kernel {times[name][0]:.4f} ms ({warm[name]:.4f} warm)  "
               f"plain {times[name][1]:.4f} ms  bound {bounds[name][0]:.4f} ms"
               f" ({bounds[name][1]}){what}", flush=True)
-    return errs, times, bounds, twins
+    return errs, times, bounds, twins, k64
 
 
 COMPARE_REPS = 50        # launches a kernel is timed over in kernel_times
@@ -852,6 +1058,56 @@ def check_split_tick(dev, sc, state):
     return bitwise
 
 
+def run_dam_k64(dev, sc, state):
+    """Phase 6d: DAM_BREAK 100k built on the card at fluid.grid.max_per_cell
+    = 64, the reference's cap, on the stacked and the split path: one tick
+    (SUBSTEPS sub-steps) from ``state``, each kernel of the path launched
+    once a sub-step at K = 64 and no plain version, the state finite. Beside
+    it one tick at K = 16 from the same state: where no cell overflows 16
+    slots during the tick the two agree to the bit. Returns whether they
+    did, by path."""
+    import dataclasses
+    import torch
+    from lpe_tpu_torch.core.telemetry import capacity_report
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    from lpe_tpu_torch.systems import build_run_fn
+
+    liq = sc.spec.liquid_slice
+    grid64 = dataclasses.replace(sc.cfg.fluid.grid, max_per_cell=64)
+    fullest = capacity_report(state, sc.spec, sc.cfg)["fluid_cell_slots"]
+    same = {}
+    for label, kw, want in (
+            ("stacked", {}, ("migrate", "pair_sweep", "coupling9")),
+            ("split", dict(pair_backend="pallas"),
+             ("migrate", "density", "force", "coupling"))):
+        ends = {}
+        for k, grid_kw in ((64, dict(grid=grid64)), (16, {})):
+            run = build_run_fn(sc.spec, fluid_cfg(sc.cfg, **kw, **grid_kw),
+                               ticks=1, device=dev)
+            SK.reset_counters()
+            ends[k] = run(state).bodies
+            torch.cuda.synchronize()
+            launches = {op.name: op.launches for op in SK.OPS if op.launches}
+            slots = run.systems["fluid"].grid_build(state)["occ"].shape[1]
+            if launches != dict.fromkeys(want, SUBSTEPS) or slots != k or \
+                    any(op.plain_calls for op in SK.OPS):
+                fail(f"dam K = {k} {label}: launches {launches}, {slots} "
+                     f"slots a cell")
+        a, b = ends[64], ends[16]
+        if not bool(torch.isfinite(a.pos).all()) or \
+                not bool(torch.isfinite(a.vel).all()):
+            fail(f"dam K = 64 {label}: non-finite state")
+        same[label] = all(same_bits(getattr(a, f)[liq], getattr(b, f)[liq])
+                          for f in ("pos", "vel", "density", "pressure"))
+        print(f"dam {DAM_N} built at max_per_cell 64 ({label}): one tick, "
+              f"launches {dict.fromkeys(want, SUBSTEPS)} at K = 64; against "
+              f"the same tick at K = 16 (the fullest cell holds "
+              f"{fullest['max']} particles before it): max |dpos| "
+              f"{max_err(a.pos[liq], b.pos[liq]):.3e} m, bitwise equal "
+              f"{same[label]}", flush=True)
+    return same
+
+
 def run_dam_scatter(dev, card):
     """Phase 6b: the per-tick scatter step with the split pair kernels, 10
     ticks twice from the initial state: launches, bitwise repeatability.
@@ -977,12 +1233,16 @@ def run_simple_fluid(dev, card, reps=2, **fluid_kw):
     print("simple_fluid: two runs from seed 0 are bitwise equal", flush=True)
 
 
-def rigid_run(dev, ticks):
-    """RIGID_STACKS 10k from seed 0 through build_run_fn(ticks=10)."""
+def rigid_run(dev, ticks, backend="auto"):
+    """RIGID_STACKS 10k from seed 0 through build_run_fn(ticks=10), with
+    the rigid narrowphase_backend ``backend``."""
+    import dataclasses
     from lpe_tpu_torch.scenarios.bench_scenes import build_rigid_stacks
     from lpe_tpu_torch.systems import build_run_fn
     sc = build_rigid_stacks(RIGID_N, seed=0, device=dev)
-    run = build_run_fn(sc.spec, sc.cfg, ticks=BLOCK, device=dev)
+    cfg = sc.cfg.replace(rigid=dataclasses.replace(
+        sc.cfg.rigid, narrowphase_backend=backend))
+    run = build_run_fn(sc.spec, cfg, ticks=BLOCK, device=dev)
     state = sc.state
     for _ in range(ticks // BLOCK):
         state = run(state)
@@ -1016,12 +1276,13 @@ def run_rigid(dev, card):
         state = run(state)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = RK.narrowphase.launches
-    plain = RK.narrowphase.plain_calls
+    launches = RK.narrowphase_grid.launches
+    plain = sum(op.plain_calls for op in RK.OPS)
     ticks = blocks * BLOCK
-    if launches != ticks or plain != 0:
-        fail(f"rigid: narrowphase launches {launches}, plain calls {plain} "
-             f"in {ticks} ticks")
+    if launches != ticks or plain != 0 or RK.narrowphase.launches != 0:
+        fail(f"rigid: narrowphase_grid launches {launches}, row-form "
+             f"narrowphase launches {RK.narrowphase.launches}, plain calls "
+             f"{plain} in {ticks} ticks")
     pos = state.bodies.pos[:S]
     dyn = ~state.bodies.boundary[:S]
     size = sc.cfg.shared.universe_size_m
@@ -1044,7 +1305,7 @@ def run_rigid(dev, card):
         fail(f"rigid: {rep['rigid_grid_slots']} bodies dropped from the grid")
     tps = ticks / dt
     print(f"rigid {RIGID_N}: {tps:.2f} ticks/s over {blocks} blocks of "
-          f"{BLOCK} (host clock, synchronized) on {card}; narrowphase "
+          f"{BLOCK} (host clock, synchronized) on {card}; narrowphase_grid "
           f"launches {launches}, plain calls {plain}; guard host reads "
           f"{step.guard_reads / ticks:.2f} a tick, rebuilds {step.rebuilds} "
           f"of {ticks} ticks; mean y {y0:.4f} -> {y1:.4f}", flush=True)
@@ -1055,16 +1316,36 @@ def run_rigid(dev, card):
                            getattr(finals[1].bodies, name)):
             fail(f"rigid: two 30-tick runs from one seed differ in {name}")
     print("rigid: two 30-tick runs from seed 0 are bitwise equal", flush=True)
-    return launches, run, state
+    # the same block with narrowphase_backend="xla": the plain gathers and
+    # geometry in place of the grid kernel, the same state to the bit
+    RK.reset_counters()
+    xla = rigid_run(dev, 30, backend="xla")[2]
+    if any(op.launches for op in RK.OPS):
+        fail("rigid xla: a narrowphase kernel launched")
+    differ = [name for part in ("", "bodies")
+              for name, a, b in state_fields(finals[0], xla, part)
+              if not tensor_bits_equal(a, b)]
+    print(f"rigid: 30 ticks with the grid narrowphase kernel vs "
+          f"narrowphase_backend='xla': every state field bitwise equal "
+          f"{not differ}", flush=True)
+    if differ:
+        fail(f"rigid: the grid kernel's 30 ticks differ from xla's in "
+             f"{differ}")
+    return launches, run, state, not differ
 
 
 def check_narrowphase(state, run):
-    """Phase 8: the narrowphase kernel against its plain version at the
-    rigid-10k rows of ``state``, with the tolerances of the JAX package's
-    Pallas-vs-XLA test (tests/test_pallas_rigid.py:52-65)."""
+    """Phase 8: at the rigid-10k rows of ``state``, the row-form
+    narrowphase kernel against its plain version, with the tolerances of
+    the JAX package's Pallas-vs-XLA test (tests/test_pallas_rigid.py:52-65),
+    and the grid kernel (the tick's) against its plain version to the bit
+    on every candidate row; both timed. Returns (max abs err, times, bound)
+    of each, by name."""
     import torch
     from lpe_tpu_torch.ops import rigid_kernels as RK
-    args = run.systems["rigid"].narrowphase_inputs(state)
+    nargs, kw, valid = run.systems["rigid"].narrowphase_args(state)
+    a, b = RK.grid_rows(*nargs, **kw)
+    args = (*a, *b)
     got = RK.narrowphase(*args)
     ref = RK.narrowphase_plain(*args)
     if not torch.equal(got[0], ref[0]) or not torch.equal(got[5], ref[5]):
@@ -1085,6 +1366,7 @@ def check_narrowphase(state, run):
     if max(err["nrm"], err["pen"]) > 1e-5 or \
             max(err["pts"], err["pens"]) > 1e-4:
         fail("narrowphase differs from its plain version")
+    out = {}
     times = (cuda_ms(lambda: RK.narrowphase(*args)),
              cuda_ms(lambda: RK.narrowphase_plain(*args), 5))
     warm = cuda_ms(lambda: RK.narrowphase(*args), cold=False)
@@ -1093,11 +1375,52 @@ def check_narrowphase(state, run):
     # centroid and face normals, ~40 for the clip
     n = (args[3] + args[7]).double().clamp(min=0)
     ops = float((3 * n * n + 24 * n + 40).sum())
-    bnd = bound(nbytes(*args, *got), ops)
+    out["narrowphase"] = (max(err.values()), times,
+                          bound(nbytes(*args, *got), ops))
     print(f"kernel narrowphase: max_abs_err {max(err.values()):.3e}  kernel "
           f"{times[0]:.4f} ms ({warm:.4f} warm)  plain {times[1]:.4f} ms  "
-          f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
-    return max(err.values()), times, bnd
+          f"bound {out['narrowphase'][2][0]:.4f} ms "
+          f"({out['narrowphase'][2][1]})", flush=True)
+
+    # the grid kernel: every output of every candidate row to the bit (and
+    # of every row, printed), then its time against the plain version's
+    got = RK.narrowphase_grid(*nargs, **kw)
+    ref = RK.narrowphase_grid_plain(*nargs, **kw)
+    v = valid.reshape(-1)
+    names = ("hit", "nrm", "pen", "pts", "pens", "cval", "pos_a", "pos_b")
+    on_valid = [nm for nm, g, r in zip(names, got, ref)
+                if not tensor_bits_equal(g[v], r[v])]
+    on_all = all(tensor_bits_equal(g, r) for g, r in zip(got, ref))
+
+    def row_err(g, r):
+        """Max abs error over the candidate rows where r is finite."""
+        ok = v & torch.isfinite(r).reshape(len(v), -1).all(-1)
+        return max_err(g[ok], r[ok]) if bool(ok.any()) else 0.0
+
+    gerr = max(row_err(g, r) for g, r in zip(got, ref)
+               if g.is_floating_point())
+    print(f"narrowphase_grid: {int(v.sum())} candidate rows of {len(v)}: "
+          f"outputs differing from the plain version {on_valid or 'none'}; "
+          f"all rows bitwise equal {on_all}", flush=True)
+    if on_valid:
+        fail(f"narrowphase_grid differs from its plain version in "
+             f"{on_valid}")
+    grid = lambda: RK.narrowphase_grid(*nargs, **kw)
+    gtimes = (cuda_ms(grid), cuda_ms(
+        lambda: RK.narrowphase_grid_plain(*nargs, **kw), 5))
+    gwarm = cuda_ms(grid, cold=False)
+    # operations: each body's ring once (~24 a vertex), then per row the
+    # n^2 projections of 3 each and ~40 for the clip
+    nb = (a[3] + b[3]).double().clamp(min=0)
+    bodies = float(nargs[3].double().sum() + nargs[7].double().sum())
+    gops = 24 * bodies + float((3 * nb * nb + 40).sum())
+    out["narrowphase_grid"] = (gerr, gtimes,
+                               bound(nbytes(*nargs, *got), gops))
+    print(f"kernel narrowphase_grid: max_abs_err {gerr:.3e}  kernel "
+          f"{gtimes[0]:.4f} ms ({gwarm:.4f} warm)  plain {gtimes[1]:.4f} ms"
+          f"  bound {out['narrowphase_grid'][2][0]:.4f} ms "
+          f"({out['narrowphase_grid'][2][1]})", flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -1150,7 +1473,7 @@ def main(argv=None) -> int:
             print("  nvcc:", line.strip(), flush=True)
 
     # 3.-6.
-    errs, times, bounds, twins = check_kernels(dev)
+    errs, times, bounds, twins, k64 = check_kernels(dev)
     stacked = dict(migrate=1, pair_sweep=1, coupling9=1)
     launches, run, state, _ = run_dam(dev, card, stacked)
     run_simple_fluid(dev, card)
@@ -1172,11 +1495,17 @@ def main(argv=None) -> int:
     twins["split_tick"] = check_split_tick(dev, ssc, sstate)
     twins["scatter_tick"] = run_dam_scatter(dev, card)
     run_simple_fluid(dev, card, reps=1, pair_backend="pallas")
+    # 6d. the dam built at K = 64 (the reference's cap)
+    for label, same in run_dam_k64(dev, ssc, sstate).items():
+        twins[f"k64_tick_{label}_equals_k16"] = same
 
-    # 7.-8.
-    launches["narrowphase"], rrun, rstate = run_rigid(dev, card)
-    errs["narrowphase"], times["narrowphase"], bounds["narrowphase"] = \
-        check_narrowphase(rstate, rrun)
+    # 7.-8. the rigid tick runs the grid kernel; the row form, which it
+    # replaces there, is no longer on a path
+    launches["narrowphase_grid"], rrun, rstate, twins["rigid_xla_tick"] = \
+        run_rigid(dev, card)
+    launches["narrowphase"] = 0
+    for name, (e, t, bnd) in check_narrowphase(rstate, rrun).items():
+        errs[name], times[name], bounds[name] = e, t, bnd
 
     # 9. results: no single PyTorch call computes any of these kernels
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -1186,6 +1515,7 @@ def main(argv=None) -> int:
                     library_ms=None)
                for name, (src, rep) in KERNEL_INFO.items()]
     print(json.dumps({"bitwise_twins": twins}), flush=True)
+    print(json.dumps({"kernels_at_k64_folded": k64}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

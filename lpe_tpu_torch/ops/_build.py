@@ -23,9 +23,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("common.cuh", "sph_pair.cuh", "stage.cuh", "couple.cuh",
-           "migrate.cu",
-           "pair_sweep.cu", "coupling9.cu", "narrowphase.cu", "density.cu",
-           "force.cu", "coupling.cu")
+           "narrow.cuh", "migrate.cu", "pair_sweep.cu", "coupling9.cu",
+           "narrowphase.cu", "narrowphase_grid.cu", "density.cu", "force.cu",
+           "coupling.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lpe_tpu_torch"
 # --fmad=false: no contraction of a*b+c into one rounding, so the kernels
 # round like the plain PyTorch ops they are held against. No fast math:
@@ -78,6 +78,17 @@ class NarrowParams(ctypes.Structure):
     _fields_ = [("N", _i), ("V", _i)]
 
 
+NG_MAX_CLS = 8       # classes of rows csrc/narrowphase_grid.cu takes
+
+
+class NarrowGridParams(ctypes.Structure):
+    _fields_ = [("NC", _i), ("KB", _i), ("R", _i), ("NBIG", _i),
+                ("nbx", _i), ("V", _i), ("ncls", _i), ("npass", _i),
+                ("nsb", _i), ("cls_end", _i * NG_MAX_CLS),
+                ("cls_dx", _i * NG_MAX_CLS), ("cls_dy", _i * NG_MAX_CLS),
+                ("cls_big", _i * NG_MAX_CLS), ("pass_end", _i * NG_MAX_CLS)]
+
+
 def couple_params(rows, K, W, S, NBIG, cn) -> CoupleParams:
     from .sph_kernels import rig_width
     mf = cn["max_force"]
@@ -104,6 +115,7 @@ _ENTRIES = {   # name -> (number of tensor arguments, params type)
     "lpe_pair_sweep": (4, SweepParams),
     "lpe_coupling9": (10, CoupleParams),
     "lpe_narrowphase": (16, NarrowParams),
+    "lpe_narrowphase_grid": (20, NarrowGridParams),
     "lpe_density": (2, SweepParams),
     "lpe_force": (3, SweepParams),
     "lpe_coupling": (7, CoupleParams),

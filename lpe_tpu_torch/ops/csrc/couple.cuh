@@ -6,7 +6,8 @@
 // (:266), _cand_math (:290), _couple_rows (:488) and _couple_fin (:449),
 // here hoist, cand_math, cand_add and couple_fin. couple_rows is the block
 // body: a block of one grid row, BIG_BLOCK_COLS columns and all K slots
-// (K <= 32), one thread per (slot, column), columns fastest. The two
+// (K <= 64), one thread per (slot, column) up to K = 32 and per (slot
+// pair k, k + 32, column) above, columns fastest. The two
 // kernels differ only in the slot source they hand it (what a slot loads
 // and where its new state is stored), so on one sub-step they give the
 // same bits. The per-(row, slot, column) partials and the per-block
@@ -255,9 +256,9 @@ __device__ __forceinline__ CoupleOut couple_fin(const CoupleParams& P,
   return o;
 }
 
-// A coupling block is BIG_BLOCK_COLS x K threads: up to 1024 at K = 32,
-// where a thread may hold at most 64 registers; unbounded, the candidate
-// math takes 96. So both coupling kernels take
+// A coupling block is BIG_BLOCK_COLS x min(K, 32) threads: up to 1024 at
+// K >= 32, where a thread may hold at most 64 registers; unbounded, the
+// candidate math takes 96. So both coupling kernels take
 // __launch_bounds__(COUPLE_THREADS), which holds them to 64 registers
 // (ptxas spills the rest). At K = 16 (the dam's K) two blocks of 512
 // threads are then resident an SM: on an H100 at DAM_BREAK 100k two beat
@@ -265,14 +266,23 @@ __device__ __forceinline__ CoupleOut couple_fin(const CoupleParams& P,
 // candidate math's latency hides behind twice the warps) and three (fewer
 // registers, more spills). SIMPLE_FLUID's coupling9, whose few coupled
 // blocks each wait on their own candidate loop, pays the spills: PERF.md.
+// Above K = 32 a block of 2,048 threads cannot launch, so a thread takes
+// the slots k and k + 32 of its column (couple_rows<2>); the sums keep
+// their order, so a cell's partials do not depend on the tier.
 constexpr int COUPLE_THREADS = BIG_BLOCK_COLS * 32;
+
+// The block of a coupling kernel at K slots.
+inline dim3 couple_block(int K) {
+  return dim3(BIG_BLOCK_COLS, K < 32 ? K : 32);
+}
 
 // Shared memory of a coupling block: floats red[3][K][BIG_BLOCK_COLS] and
 // colsum[3][BIG_BLOCK_COLS], ints list[K * BIG_BLOCK_COLS] and
-// count[BIG_BLOCK_COLS].
+// count[max(K, BIG_BLOCK_COLS)].
 inline size_t couple_smem(const CoupleParams* P) {
   const size_t kc = (size_t)P->K * BIG_BLOCK_COLS;
-  return (3 * kc + 3 * BIG_BLOCK_COLS + kc + BIG_BLOCK_COLS) * 4;
+  const size_t nc = P->K > BIG_BLOCK_COLS ? P->K : BIG_BLOCK_COLS;
+  return (3 * kc + 3 * BIG_BLOCK_COLS + kc + nc) * 4;
 }
 
 // Zero the partial outputs of row p in this block's columns (an apron row,
@@ -290,11 +300,13 @@ __device__ __forceinline__ void couple_zero_partials(const CoupleParams& P,
 }
 
 // The block body of a coupling kernel: grid (column blocks, rows), block
-// (BIG_BLOCK_COLS columns, K slots), shared memory couple_smem. Couples
-// the particles of row blockIdx.y in the block's columns against the <= S
-// rigids rasterized to each column's cell (fld [rows, S, Wp, W]) and the
-// NBIG big solids (big [NBIG+1, Wp]); writes PL [rows, 3S, W] and bigp
-// [rows, NB, 3 NBIG] of this block. ``src`` is the kernel's slot source:
+// couple_block(K) (BIG_BLOCK_COLS columns, min(K, 32) slot rows), shared
+// memory couple_smem; NS = 1 for K <= 32 and 2 above (a thread of slot row
+// y takes slots y and y + 32). Couples the particles of row blockIdx.y in
+// the block's columns against the <= S rigids rasterized to each column's
+// cell (fld [rows, S, Wp, W]) and the NBIG big solids (big [NBIG+1, Wp]);
+// writes PL [rows, 3S, W] and bigp [rows, NB, 3 NBIG] of this block.
+// ``src`` is the kernel's slot source:
 // - Slot: holds ``CoupleIn in`` and whatever its store needs;
 // - first(P, p, k, c): a slot's ``in.live`` flag (an occupied slot of a
 //   cell with cpl > 0) and the input of its copy-through (couple_fin with
@@ -315,16 +327,16 @@ __device__ __forceinline__ void couple_zero_partials(const CoupleParams& P,
 //   flags. A block with none copies through: couple_fin with no candidate
 //   (the floor clamp), the new state and zero partials; no hoist,
 //   candidate loop, barrier or reduction.
-// - Otherwise the block lists its live slots (a ballot per warp) and the
-//   first nlive threads take one live particle each, so the candidate math
-//   runs in full warps. A candidate with no live particle in its box is
-//   skipped by the block (__syncthreads_or, the TPU kernel's per-tile
-//   skip).
+// - Otherwise the block lists its live slots (a ballot per warp and slot)
+//   and the first nlive list entries go one to a thread (two a thread
+//   above 1024), so the candidate math runs in full warps. A candidate
+//   with no live particle in its box is skipped by the block
+//   (__syncthreads_or, the TPU kernel's per-tile skip).
 // - The partials are summed per column over the K slots in slot order
 //   (empty slots add +0), then per block over the columns in order; each
 //   particle sums its candidates in candidate order through cand_math,
 //   cand_add and couple_fin.
-template <class Src>
+template <int NS, class Src>
 __device__ __forceinline__ void couple_rows(const CoupleParams& P,
                                             const float* __restrict__ fld,
                                             const float* __restrict__ big,
@@ -333,88 +345,130 @@ __device__ __forceinline__ void couple_rows(const CoupleParams& P,
                                             float* red, const Src& src) {
   const int K = P.K, W = P.W, S = P.S, NBIG = P.NBIG, Wp = P.Wp;
   const int KC = K * BIG_BLOCK_COLS;
-  const int tx = threadIdx.x, k = threadIdx.y;
-  const int t = k * BIG_BLOCK_COLS + tx;     // warp k, lane tx
+  const int NT = BIG_BLOCK_COLS * blockDim.y;    // threads of the block
+  const int tx = threadIdx.x, ky = threadIdx.y;
+  const int t = ky * BIG_BLOCK_COLS + tx;     // warp ky, lane tx
   const int c0 = blockIdx.x * BIG_BLOCK_COLS;
   const int c = c0 + tx;
   const int p = blockIdx.y;
   const bool col_ok = c < W;
   using Slot = typename Src::Slot;
+  // slot j of this thread: ky + 32 j, if below K
+  auto slot_ok = [&](int j) { return col_ok && ky + 32 * j < K; };
 
   if (p == 0 || p == P.rows - 1) {          // apron rows: all zero
-    if (col_ok) src.zero(P, p, k, c);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      if (slot_ok(j)) src.zero(P, p, ky + 32 * j, c);
     couple_zero_partials(P, pl, bigp, p, c, col_ok);
     return;
   }
 
-  Slot me{};
-  if (col_ok) me = src.first(P, p, k, c);
+  Slot me[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    me[j] = Slot{};
+    if (slot_ok(j)) me[j] = src.first(P, p, ky + 32 * j, c);
+  }
   float* red_x = red;
   float* red_y = red + KC;
   float* red_t = red + 2 * KC;
   float* colsum = red + 3 * KC;                // [3][BIG_BLOCK_COLS]
   int* list = reinterpret_cast<int*>(colsum + 3 * BIG_BLOCK_COLS);
-  int* count = list + KC;                      // live slots per warp
-  const unsigned ball = __ballot_sync(0xffffffffu, me.in.live);
-  if (tx == 0) count[k] = __popc(ball);
-  const int nlive = __syncthreads_count(me.in.live);
+  int* count = list + KC;                      // live slots per slot row
+  unsigned ball[NS];
+  int nlive = 0;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    ball[j] = __ballot_sync(0xffffffffu, me[j].in.live);
+    if (tx == 0 && ky + 32 * j < K) count[ky + 32 * j] = __popc(ball[j]);
+    nlive += __syncthreads_count(me[j].in.live);
+  }
   const CoupleAcc none = {0.f, 0.f, 0.f, 0.f, false, false};
 
   if (nlive == 0) {                           // copy-through block
     couple_zero_partials(P, pl, bigp, p, c, col_ok);
-    if (col_ok) src.store(P, p, k, c, couple_fin(P, none, me.in), me);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      if (slot_ok(j))
+        src.store(P, p, ky + 32 * j, c, couple_fin(P, none, me[j].in),
+                  me[j]);
     return;
   }
 
-  // the live slots, slot-major: thread i < nlive takes list[i]
-  if (me.in.live) {
-    int base = 0;
-    for (int w = 0; w < k; ++w) base += count[w];
-    list[base + __popc(ball & ((1u << tx) - 1u))] = t;
+  // the live slots, slot-major: list entry i goes to thread i % NT
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int k = ky + 32 * j;
+    if (me[j].in.live) {
+      int base = 0;
+      for (int w = 0; w < k; ++w) base += count[w];
+      list[base + __popc(ball[j] & ((1u << tx) - 1u))] =
+          k * BIG_BLOCK_COLS + tx;
+    }
+    if (k < K) {                              // empty slots sum as +0
+      red_x[k * BIG_BLOCK_COLS + tx] = 0.f;
+      red_y[k * BIG_BLOCK_COLS + tx] = 0.f;
+      red_t[k * BIG_BLOCK_COLS + tx] = 0.f;
+    }
   }
-  red_x[t] = 0.f;                             // empty slots sum as +0
-  red_y[t] = 0.f;
-  red_t[t] = 0.f;
   __syncthreads();
-  const bool has = t < nlive;
-  int ridx = 0, ic = 0, ik = 0;
-  Slot it = me;
-  Hoist hp = {0.f, 0.f, 0.f};
-  CoupleAcc acc = none;
-  if (has) {
-    ridx = list[t];
-    ik = ridx / BIG_BLOCK_COLS;
-    ic = c0 + ridx % BIG_BLOCK_COLS;
-    it = src.full(P, p, ik, ic);
-    hp = hoist(P, it.in.py, it.in.rho, it.in.pe, it.in.m);
+  bool has[NS];
+  int ridx[NS], ic[NS], ik[NS];
+  Slot it[NS];
+  Hoist hp[NS];
+  CoupleAcc acc[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    has[j] = t + NT * j < nlive;
+    ridx[j] = ic[j] = ik[j] = 0;
+    it[j] = me[j];
+    hp[j] = {0.f, 0.f, 0.f};
+    acc[j] = none;
+    if (has[j]) {
+      ridx[j] = list[t + NT * j];
+      ik[j] = ridx[j] / BIG_BLOCK_COLS;
+      ic[j] = c0 + ridx[j] % BIG_BLOCK_COLS;
+      it[j] = src.full(P, p, ik[j], ic[j]);
+      hp[j] = hoist(P, it[j].in.py, it[j].in.rho, it[j].in.pe, it[j].in.m);
+    }
   }
-  const CoupleIn& in = it.in;
-  // a listed particle against one candidate (parameter i at prm[i *
+  // listed particle j against one candidate (parameter i at prm[i *
   // stride]): its sums, and its force and torque into the slot's red entry
   // (+0 where the particle is not in the candidate's box)
-  auto add_cand = [&](const float* prm, int stride, bool inb) {
+  auto add_cand = [&](int j, const float* prm, int stride, bool inb) {
     Cand r = {false, false, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (inb) {
-      r = cand_math(P, prm, stride, true, in.px, in.py, in.vx1, in.vy1, hp);
-      cand_add(acc, r);
+      const CoupleIn& in = it[j].in;
+      r = cand_math(P, prm, stride, true, in.px, in.py, in.vx1, in.vy1,
+                    hp[j]);
+      cand_add(acc[j], r);
     }
-    red_x[ridx] = r.fx;
-    red_y[ridx] = r.fy;
-    red_t[ridx] = r.tq;
+    red_x[ridx[j]] = r.fx;
+    red_y[ridx[j]] = r.fy;
+    red_t[ridx[j]] = r.tq;
   };
 
   // rasterized per-cell candidates: one column's slot s shares its params
   for (int s = 0; s < S; ++s) {
-    const float* prm = fld + ((size_t)(p * S + s) * Wp) * W + ic;
-    const bool inb = has && in_box(prm, W, in.px, in.py, true);
+    const float* prm[NS];
+    bool inb[NS], any = false;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      prm[j] = fld + ((size_t)(p * S + s) * Wp) * W + ic[j];
+      inb[j] = has[j] && in_box(prm[j], W, it[j].in.px, it[j].in.py, true);
+      any = any || inb[j];
+    }
     float* o = pl + ((size_t)p * 3 * S + 3 * s) * W + c;
-    if (!__syncthreads_or(inb)) {
-      if (k == 0 && col_ok) o[0] = o[W] = o[2 * W] = 0.f;
+    if (!__syncthreads_or(any)) {
+      if (ky == 0 && col_ok) o[0] = o[W] = o[2 * W] = 0.f;
       continue;
     }
-    if (has) add_cand(prm, W, inb);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      if (has[j]) add_cand(j, prm[j], W, inb[j]);
     __syncthreads();
-    if (k == 0 && col_ok) {                   // fixed-order sum over slots
+    if (ky == 0 && col_ok) {                  // fixed-order sum over slots
       float a = 0.f, b = 0.f, q = 0.f;
       for (int kk = 0; kk < K; ++kk) {
         a = a + red_x[kk * BIG_BLOCK_COLS + tx];
@@ -432,15 +486,22 @@ __device__ __forceinline__ void couple_rows(const CoupleParams& P,
   const int NB = gridDim.x;
   for (int bi = 0; bi < NBIG; ++bi) {
     const float* prm = big + (size_t)bi * Wp;
-    const bool inb = has && in_box(prm, 1, in.px, in.py, true);
+    bool inb[NS], any = false;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      inb[j] = has[j] && in_box(prm, 1, it[j].in.px, it[j].in.py, true);
+      any = any || inb[j];
+    }
     float* o = bigp + ((size_t)p * NB + blockIdx.x) * 3 * NBIG + 3 * bi;
-    if (!__syncthreads_or(inb)) {
+    if (!__syncthreads_or(any)) {
       if (t == 0) o[0] = o[1] = o[2] = 0.f;
       continue;
     }
-    if (has) add_cand(prm, 1, inb);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      if (has[j]) add_cand(j, prm, 1, inb[j]);
     __syncthreads();
-    if (k == 0) {                             // per column over K, in order
+    if (ky == 0) {                            // per column over K, in order
       float a = 0.f, b = 0.f, q = 0.f;
       for (int kk = 0; kk < K; ++kk) {
         a = a + red_x[kk * BIG_BLOCK_COLS + tx];
@@ -466,9 +527,14 @@ __device__ __forceinline__ void couple_rows(const CoupleParams& P,
     __syncthreads();
   }
 
-  if (has) src.store(P, p, ik, ic, couple_fin(P, acc, in), it);
-  if (col_ok && !me.in.live)
-    src.store(P, p, k, c, couple_fin(P, none, me.in), me);
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    if (has[j])
+      src.store(P, p, ik[j], ic[j], couple_fin(P, acc[j], it[j].in), it[j]);
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    if (slot_ok(j) && !me[j].in.live)
+      src.store(P, p, ky + 32 * j, c, couple_fin(P, none, me[j].in), me[j]);
 }
 
 }  // namespace

@@ -103,7 +103,8 @@ struct Src10 {
 
 }  // namespace
 
-// block: (BIG_BLOCK_COLS columns, K slots); grid: (column blocks, rows).
+// block: couple_block(K); grid: (column blocks, rows); NS slots a thread.
+template <int NS>
 __global__ void __launch_bounds__(COUPLE_THREADS)
     coupling_kernel(const int* __restrict__ cpl,
                     const float* __restrict__ fld,
@@ -115,17 +116,21 @@ __global__ void __launch_bounds__(COUPLE_THREADS)
                     CoupleParams P) {
   extern __shared__ float red[];
   const Src10 src = {cpl, d10, out};
-  couple_rows(P, fld, big, pl, bigp, red, src);
+  couple_rows<NS>(P, fld, big, pl, bigp, red, src);
 }
 
 LPE_EXPORT int lpe_coupling(const int* cpl, const float* fld,
                             const float* big, const float* d10, float* out,
                             float* pl, float* bigp, cudaStream_t stream,
                             const CoupleParams* P) {
-  if (P->K < 1 || P->K > 32) return (int)cudaErrorInvalidValue;
-  dim3 block(BIG_BLOCK_COLS, P->K);
-  dim3 grid((P->W + BIG_BLOCK_COLS - 1) / BIG_BLOCK_COLS, P->rows);
-  coupling_kernel<<<grid, block, couple_smem(P), stream>>>(
-      cpl, fld, big, d10, out, pl, bigp, *P);
+  if (P->K < 1 || P->K > 64) return (int)cudaErrorInvalidValue;
+  const dim3 block = couple_block(P->K);
+  const dim3 grid((P->W + BIG_BLOCK_COLS - 1) / BIG_BLOCK_COLS, P->rows);
+  if (P->K <= 32)
+    coupling_kernel<1><<<grid, block, couple_smem(P), stream>>>(
+        cpl, fld, big, d10, out, pl, bigp, *P);
+  else
+    coupling_kernel<2><<<grid, block, couple_smem(P), stream>>>(
+        cpl, fld, big, d10, out, pl, bigp, *P);
   return (int)cudaGetLastError();
 }

@@ -105,7 +105,8 @@ struct Src9 {
 
 }  // namespace
 
-// block: (BIG_BLOCK_COLS columns, K slots); grid: (column blocks, rows).
+// block: couple_block(K); grid: (column blocks, rows); NS slots a thread.
+template <int NS>
 __global__ void __launch_bounds__(COUPLE_THREADS)
     coupling9_kernel(const int* __restrict__ cpl,
                      const float* __restrict__ fld,
@@ -120,7 +121,7 @@ __global__ void __launch_bounds__(COUPLE_THREADS)
                      CoupleParams P) {
   extern __shared__ float red[];
   const Src9 src = {cpl, m9, rho, fxr, fyr, st};
-  couple_rows(P, fld, big, pl, bigp, red, src);
+  couple_rows<NS>(P, fld, big, pl, bigp, red, src);
 }
 
 LPE_EXPORT int lpe_coupling9(const int* cpl, const float* fld,
@@ -129,10 +130,14 @@ LPE_EXPORT int lpe_coupling9(const int* cpl, const float* fld,
                              const float* fy, float* st, float* pl,
                              float* bigp, cudaStream_t stream,
                              const CoupleParams* P) {
-  if (P->K < 1 || P->K > 32) return (int)cudaErrorInvalidValue;
-  dim3 block(BIG_BLOCK_COLS, P->K);
-  dim3 grid((P->W + BIG_BLOCK_COLS - 1) / BIG_BLOCK_COLS, P->rows);
-  coupling9_kernel<<<grid, block, couple_smem(P), stream>>>(
-      cpl, fld, big, m9, rho, fx, fy, st, pl, bigp, *P);
+  if (P->K < 1 || P->K > 64) return (int)cudaErrorInvalidValue;
+  const dim3 block = couple_block(P->K);
+  const dim3 grid((P->W + BIG_BLOCK_COLS - 1) / BIG_BLOCK_COLS, P->rows);
+  if (P->K <= 32)
+    coupling9_kernel<1><<<grid, block, couple_smem(P), stream>>>(
+        cpl, fld, big, m9, rho, fx, fy, st, pl, bigp, *P);
+  else
+    coupling9_kernel<2><<<grid, block, couple_smem(P), stream>>>(
+        cpl, fld, big, m9, rho, fx, fy, st, pl, bigp, *P);
   return (int)cudaGetLastError();
 }

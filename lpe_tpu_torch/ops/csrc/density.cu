@@ -35,32 +35,40 @@
 //   slot) order: the bits of the sweep's rho.
 // - The band height was timed on an H100 at DAM_BREAK 100k
 //   (scripts/density_band_sweep.py; PERF.md).
+// - Two K tiers (DensityTier), one template: up to K = 32 a 32-bit mask a
+//   cell and 32 columns a block (the code the dam's K = 16 always ran);
+//   from 33 to 64, the reference's cap, a 64-bit mask and 16 columns
+//   (94 KB of shared memory at K = 64).
 // - Outputs go through shared memory to stores along W.
 #include "sph_pair.cuh"
 #include "stage.cuh"
 
 namespace {
 
-constexpr int DN_TILE = 32;              // output columns of a block
 constexpr int DN_BAND = 3;               // interior rows of a block
 constexpr int DN_ROWS = DN_BAND + 2;     // staged rows: one halo a side
-constexpr int DN_WIN = DN_TILE + 2;      // staged columns: one halo a side
 constexpr int DN_THREADS = 256;
 constexpr int DN_PART = 3;               // x, y, m
-constexpr int DN_OCC = 5;                // occupancies a thread holds a row
-static_assert(32 * DN_WIN <= DN_OCC * DN_THREADS, "a row's window at K=32");
+
+template <class Mask>
+using DensityTier = StageTier<Mask, 1, DN_THREADS>;   // one halo column
 
 // Bytes of shared memory of a block: floats part[ROWS][PART][E],
-// out[BAND][K][TILE], then unsigned mask[ROWS][WIN], int start[ROWS][WIN +
-// 1], then bytes slot[ROWS][E], cell[ROWS][E], with E = K * WIN entries a
-// row (45,604 bytes at K = 16).
+// out[BAND][K][TILE], then Mask mask[ROWS][WIN] (after an even count of
+// floats: 8-byte aligned), int start[ROWS][WIN + 1], then bytes
+// slot[ROWS][E], cell[ROWS][E], with E = K * WIN entries a row (45,604
+// bytes at K = 16).
+template <class Mask>
 constexpr int density_smem(int K) {
-  return 4 * (DN_ROWS * DN_PART * K * DN_WIN + DN_BAND * K * DN_TILE +
-              DN_ROWS * DN_WIN + DN_ROWS * (DN_WIN + 1)) +
-         2 * DN_ROWS * K * DN_WIN;
+  using T = DensityTier<Mask>;
+  return 4 * (DN_ROWS * DN_PART * K * T::WIN + DN_BAND * K * T::TILE +
+              DN_ROWS * (T::WIN + 1)) +
+         (int)sizeof(Mask) * DN_ROWS * T::WIN + 2 * DN_ROWS * K * T::WIN;
 }
-// the most a block may have on Hopper (227 KB), at the largest K
-static_assert(density_smem(32) <= 232448, "shared memory at K = 32");
+// the most a block may have on Hopper (227 KB), at each tier's largest K
+static_assert(density_smem<unsigned>(32) <= 232448, "smem at K = 32");
+static_assert(density_smem<unsigned long long>(64) <= 232448,
+              "smem at K = 64");
 
 // A 4-byte copy from global to shared memory that the thread does not wait
 // for; cp_async_wait_all waits for all of the thread's copies.
@@ -77,15 +85,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }  // namespace
 
 // grid: (column tiles, bands of DN_BAND interior rows); DN_THREADS threads.
+template <class Mask>
 __global__ void __launch_bounds__(DN_THREADS)
     split_density_kernel(const float* __restrict__ d4,
                          float* __restrict__ rho_o, SweepParams P) {
+  using T = DensityTier<Mask>;
+  constexpr int DN_TILE = T::TILE, DN_WIN = T::WIN;
   extern __shared__ __align__(16) float sm[];
   const int K = P.K, W = P.W, ny = P.rows - 2;
   const int E = K * DN_WIN;
   float* part = sm;                                   // [ROWS][PART][E]
   float* sout = part + DN_ROWS * DN_PART * E;         // [BAND][K][TILE]
-  unsigned* mask = reinterpret_cast<unsigned*>(sout + DN_BAND * K * DN_TILE);
+  Mask* mask = reinterpret_cast<Mask*>(sout + DN_BAND * K * DN_TILE);
   int* start = reinterpret_cast<int*>(mask + DN_ROWS * DN_WIN);
   unsigned char* sslot =
       reinterpret_cast<unsigned char*>(start + DN_ROWS * (DN_WIN + 1));
@@ -103,13 +114,13 @@ __global__ void __launch_bounds__(DN_THREADS)
 
   // 1. the occupancy of staged rows p0-1 .. p0+nb (row r of the stage is
   // grid row p0-1+r), all loads in flight together, into bit masks
-  RowOcc<DN_WIN, DN_OCC> ro[DN_ROWS];
+  RowOcc<DN_WIN, T::OCC> ro[DN_ROWS];
 #pragma unroll
   for (int r = 0; r < DN_ROWS; ++r) {
     const int q = p0 - 1 + r;
     ro[r].load(r <= nb + 1 && q < P.rows ? occ + q * rs : nullptr, K, W, cw);
   }
-  for (int i = tid; i < DN_ROWS * DN_WIN; i += nthr) mask[i] = 0u;
+  for (int i = tid; i < DN_ROWS * DN_WIN; i += nthr) mask[i] = 0;
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < DN_ROWS; ++r) ro[r].to_mask(mask + r * DN_WIN);
@@ -118,7 +129,7 @@ __global__ void __launch_bounds__(DN_THREADS)
   // a block whose own cells hold no particle has only zeros to write
   bool any = false;
   for (int i = tid; i < nb * DN_TILE; i += nthr)
-    any = any || mask[(1 + i / DN_TILE) * DN_WIN + 1 + i % DN_TILE] != 0u;
+    any = any || mask[(1 + i / DN_TILE) * DN_WIN + 1 + i % DN_TILE] != 0;
   if (!__syncthreads_or(any)) {
     for (int i = tid; i < nb * K * DN_TILE; i += nthr) {
       const int r = i / (K * DN_TILE), k = (i / DN_TILE) % K;
@@ -132,7 +143,7 @@ __global__ void __launch_bounds__(DN_THREADS)
   // 2. every staged row's live slots, compacted cell by cell in slot order
   for (int r = 0; r <= nb + 1; ++r) {
     const int q = p0 - 1 + r;
-    const unsigned* mr = mask + r * DN_WIN;
+    const Mask* mr = mask + r * DN_WIN;
     const RowScan s = stage_scan<DN_WIN>(mr, start + r * (DN_WIN + 1));
     stage_live<DN_WIN>(mr, s, K, cw, [&](int e, int k, int l, int c) {
       const float* g = d4 + q * rs + (size_t)k * W + c;
@@ -173,22 +184,36 @@ __global__ void __launch_bounds__(DN_THREADS)
   }
 }
 
-LPE_EXPORT int lpe_density(const float* d4, float* rho, cudaStream_t stream,
+namespace {
+
+template <class Mask>
+cudaError_t launch_density(const float* d4, float* rho, cudaStream_t stream,
                            const SweepParams* P) {
-  if (P->K < 1 || P->K > 32 || P->rows < 3 || P->W < 1)
-    return (int)cudaErrorInvalidValue;
-  const int smem = density_smem(P->K);
+  using T = DensityTier<Mask>;
+  const int smem = density_smem<Mask>(P->K);
   static int smem_set = 0;      // the largest dynamic size allowed so far
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        split_density_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
+        split_density_kernel<Mask>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
     smem_set = smem;
   }
   const int ny = P->rows - 2;
-  const dim3 grid((P->W + DN_TILE - 1) / DN_TILE,
+  const dim3 grid((P->W + T::TILE - 1) / T::TILE,
                   (ny + DN_BAND - 1) / DN_BAND);
-  split_density_kernel<<<grid, DN_THREADS, smem, stream>>>(d4, rho, *P);
-  return (int)cudaGetLastError();
+  split_density_kernel<Mask><<<grid, DN_THREADS, smem, stream>>>(d4, rho,
+                                                                 *P);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+LPE_EXPORT int lpe_density(const float* d4, float* rho, cudaStream_t stream,
+                           const SweepParams* P) {
+  if (P->K < 1 || P->K > 64 || P->rows < 3 || P->W < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)(P->K <= 32 ? launch_density<unsigned>(d4, rho, stream, P)
+                          : launch_density<unsigned long long>(d4, rho,
+                                                               stream, P));
 }

@@ -39,32 +39,40 @@
 //   the run's neighbours within h and spends the costly term on those
 //   alone, summing in (dy, dx, slot) order: the bits of the pair sweep's
 //   force stage on the same rho and pressure.
+// - Two K tiers (ForceTier), one template: up to K = 32 a 32-bit mask a
+//   cell and 32 columns a block (the code the dam's K = 16 always ran);
+//   from 33 to 64, the reference's cap, a 64-bit mask and 16 columns
+//   (113 KB of shared memory at K = 64).
 // - Outputs go through shared memory to stores along W.
 #include "sph_pair.cuh"
 #include "stage.cuh"
 
 namespace {
 
-constexpr int FC_TILE = 32;              // output columns of a block
 constexpr int FC_BAND = 1;               // interior rows of a block
-constexpr int FC_WIN = FC_TILE + 2;      // staged columns: one halo a side
 constexpr int FC_RING = 3;               // staged particle rows
 constexpr int FC_THREADS = 256;
 constexpr int FC_PART = 7;               // x, y, vx, vy, m, rho, p term
-constexpr int FC_OCC = 5;                // occupancies a thread holds
-static_assert(32 * FC_WIN <= FC_OCC * FC_THREADS, "a row's window at K=32");
+
+template <class Mask>
+using ForceTier = StageTier<Mask, 1, FC_THREADS>;   // one halo column
 
 // Bytes of shared memory of a block: floats part[RING][PART][E],
-// out[2][K][TILE], then unsigned mask[RING][WIN], int start[RING][WIN + 1],
-// then bytes slot[RING][E], cell[RING][E], with E = K * WIN entries a row
-// (53,884 bytes at K = 16).
+// out[2][K][TILE], then Mask mask[RING][WIN] (after an even count of
+// floats: 8-byte aligned), int start[RING][WIN + 1], then bytes
+// slot[RING][E], cell[RING][E], with E = K * WIN entries a row (53,884
+// bytes at K = 16).
+template <class Mask>
 constexpr int force_smem(int K) {
-  return 4 * (FC_RING * FC_PART * K * FC_WIN + 2 * K * FC_TILE +
-              FC_RING * FC_WIN + FC_RING * (FC_WIN + 1)) +
-         2 * FC_RING * K * FC_WIN;
+  using T = ForceTier<Mask>;
+  return 4 * (FC_RING * FC_PART * K * T::WIN + 2 * K * T::TILE +
+              FC_RING * (T::WIN + 1)) +
+         (int)sizeof(Mask) * FC_RING * T::WIN + 2 * FC_RING * K * T::WIN;
 }
-// the most a block may have on Hopper (227 KB), at the largest K
-static_assert(force_smem(32) <= 232448, "shared memory at K = 32");
+// the most a block may have on Hopper (227 KB), at each tier's largest K
+static_assert(force_smem<unsigned>(32) <= 232448, "smem at K = 32");
+static_assert(force_smem<unsigned long long>(64) <= 232448,
+              "smem at K = 64");
 
 __device__ __forceinline__ int fc_ring(int q) {
   return (q + FC_RING) % FC_RING;
@@ -73,16 +81,19 @@ __device__ __forceinline__ int fc_ring(int q) {
 }  // namespace
 
 // grid: (column tiles, bands of FC_BAND interior rows); FC_THREADS threads.
+template <class Mask>
 __global__ void __launch_bounds__(FC_THREADS)
     split_force_kernel(const float* __restrict__ d8,
                        float* __restrict__ fx_o, float* __restrict__ fy_o,
                        SweepParams P) {
+  using T = ForceTier<Mask>;
+  constexpr int FC_TILE = T::TILE, FC_WIN = T::WIN;
   extern __shared__ __align__(16) float sm[];
   const int K = P.K, W = P.W, ny = P.rows - 2;
   const int E = K * FC_WIN;
   float* part = sm;                                   // [RING][PART][E]
   float* sout = part + FC_RING * FC_PART * E;         // [2][K][TILE]
-  unsigned* mask = reinterpret_cast<unsigned*>(sout + 2 * K * FC_TILE);
+  Mask* mask = reinterpret_cast<Mask*>(sout + 2 * K * FC_TILE);
   int* start = reinterpret_cast<int*>(mask + FC_RING * FC_WIN);
   unsigned char* sslot =
       reinterpret_cast<unsigned char*>(start + FC_RING * (FC_WIN + 1));
@@ -110,19 +121,19 @@ __global__ void __launch_bounds__(FC_THREADS)
     return;
   }
 
-  RowOcc<FC_WIN, FC_OCC> ro;
+  RowOcc<FC_WIN, T::OCC> ro;
   auto load_occ = [&](int q) {
     ro.load(q >= 0 && q < P.rows ? occ + q * rs : nullptr, K, W, cw);
   };
   load_occ(p0 - 1);
-  for (int i = tid; i < FC_RING * FC_WIN; i += nthr) mask[i] = 0u;
+  for (int i = tid; i < FC_RING * FC_WIN; i += nthr) mask[i] = 0;
   __syncthreads();
 
   for (int q = p0 - 1; q <= p1; ++q) {
     // 1. stage row q: occupancy bits per window cell (its ring slot was
     // zeroed while row q-1 was staged)
     const int rq = fc_ring(q);
-    unsigned* mq = mask + rq * FC_WIN;
+    Mask* mq = mask + rq * FC_WIN;
     ro.to_mask(mq);
     __syncthreads();
     // 2. the live slots' planes, compacted cell by cell in slot order
@@ -142,7 +153,7 @@ __global__ void __launch_bounds__(FC_THREADS)
     });
     // row q-2's mask, last read by the previous row's output pass
     for (int i = tid; i < FC_WIN; i += nthr)
-      mask[fc_ring(q + 1) * FC_WIN + i] = 0u;
+      mask[fc_ring(q + 1) * FC_WIN + i] = 0;
     if (q < p1) load_occ(q + 1);
     __syncthreads();
 
@@ -176,7 +187,7 @@ __global__ void __launch_bounds__(FC_THREADS)
     __syncthreads();
 
     // 4. row f's outputs along W, 0 in empty slots
-    const unsigned* mf = mask + rf * FC_WIN;
+    const Mask* mf = mask + rf * FC_WIN;
     const size_t orow = (size_t)(f - 1) * plane;
     for (int i = tid; i < K * FC_TILE; i += nthr) {
       const int k = i / FC_TILE, t = i - k * FC_TILE, c = c0 + t;
@@ -189,22 +200,36 @@ __global__ void __launch_bounds__(FC_THREADS)
   }
 }
 
-LPE_EXPORT int lpe_force(const float* d8, float* fx, float* fy,
+namespace {
+
+template <class Mask>
+cudaError_t launch_force(const float* d8, float* fx, float* fy,
                          cudaStream_t stream, const SweepParams* P) {
-  if (P->K < 1 || P->K > 32 || P->rows < 3 || P->W < 1)
-    return (int)cudaErrorInvalidValue;
-  const int smem = force_smem(P->K);
+  using T = ForceTier<Mask>;
+  const int smem = force_smem<Mask>(P->K);
   static int smem_set = 0;      // the largest dynamic size allowed so far
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        split_force_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
+        split_force_kernel<Mask>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
     smem_set = smem;
   }
   const int ny = P->rows - 2;
-  const dim3 grid((P->W + FC_TILE - 1) / FC_TILE,
+  const dim3 grid((P->W + T::TILE - 1) / T::TILE,
                   (ny + FC_BAND - 1) / FC_BAND);
-  split_force_kernel<<<grid, FC_THREADS, smem, stream>>>(d8, fx, fy, *P);
-  return (int)cudaGetLastError();
+  split_force_kernel<Mask><<<grid, FC_THREADS, smem, stream>>>(d8, fx, fy,
+                                                               *P);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+LPE_EXPORT int lpe_force(const float* d8, float* fx, float* fy,
+                         cudaStream_t stream, const SweepParams* P) {
+  if (P->K < 1 || P->K > 64 || P->rows < 3 || P->W < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)(P->K <= 32 ? launch_force<unsigned>(d8, fx, fy, stream, P)
+                          : launch_force<unsigned long long>(d8, fx, fy,
+                                                             stream, P));
 }

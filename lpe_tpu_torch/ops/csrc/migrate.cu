@@ -37,30 +37,46 @@
 // - The band is three rows: timed on an H100 at DAM_BREAK 100k against
 //   bands of 2-6 rows, it was the fastest (PERF.md); 56 KB of shared
 //   memory a block (K = 16) lets four blocks share an SM.
+// - Two K tiers (MigrateTier), one template: up to K = 32 a cell's slots
+//   are a 32-bit mask and a block owns 32 columns (the code the dam's K =
+//   16 always ran); from 33 to 64, the reference's cap, a 64-bit mask and
+//   16 columns, so that a row's window keeps the occupancy registers and a
+//   kept candidate's offset a short (116 KB of shared memory at K = 64).
+//   The ranks are lane ballots over candidates, whatever K: a target cell
+//   keeps its first K of up to 9 K candidates.
 #include "stage.cuh"
 
 namespace {
 
-constexpr int MG_TILE = 32;              // target columns of a block
 constexpr int MG_BAND = 3;               // target rows of a block
-constexpr int MG_WIN = MG_TILE + 2;      // staged columns: one halo a side
 constexpr int MG_RING = 3;               // staged source rows
 constexpr int MG_THREADS = 256;
 constexpr int MG_PART = 8;               // staged: M9's planes but occ
-constexpr int MG_OCC = 5;                // occupancies a thread holds
-static_assert(32 * MG_WIN <= MG_OCC * MG_THREADS, "a row's window at K=32");
+
+template <class Mask>
+using MigrateTier = StageTier<Mask, 1, MG_THREADS>;   // one halo column
 
 // Bytes of shared memory of a block: floats part[RING][PART][E], then
-// unsigned mask[WIN], int start[RING][WIN + 1], int cnt[TILE], then short
-// kept[K][TILE] (a kept candidate's offset in part), then bytes
-// code[RING][E], with E = K * WIN entries a row (55,564 bytes at K = 16).
+// Mask mask[WIN] (after an even count of floats: 8-byte aligned), int
+// start[RING][WIN + 1], int cnt[TILE], then short kept[K][TILE] (a kept
+// candidate's offset in part), then bytes code[RING][E], with E = K *
+// WIN entries a row (55,564 bytes at K = 16).
+template <class Mask>
 constexpr int migrate_smem(int K) {
-  return 4 * (MG_RING * MG_PART * K * MG_WIN +
-              MG_WIN + MG_RING * (MG_WIN + 1) + MG_TILE) +
-         2 * K * MG_TILE + MG_RING * K * MG_WIN;
+  using T = MigrateTier<Mask>;
+  return 4 * (MG_RING * MG_PART * K * T::WIN + MG_RING * (T::WIN + 1) +
+              T::TILE) +
+         (int)sizeof(Mask) * T::WIN + 2 * K * T::TILE + MG_RING * K * T::WIN;
 }
-// the most a block may have on Hopper (227 KB), at the largest K
-static_assert(migrate_smem(32) <= 232448, "shared memory at K = 32");
+// the most a block may have on Hopper (227 KB), at each tier's largest K;
+// a kept candidate's offset in part fits a short
+static_assert(migrate_smem<unsigned>(32) <= 232448, "smem at K = 32");
+static_assert(migrate_smem<unsigned long long>(64) <= 232448,
+              "smem at K = 64");
+static_assert(MG_RING * MG_PART * 64 * MigrateTier<unsigned long long>::WIN
+                  <= 32768 &&
+              MG_RING * MG_PART * 32 * MigrateTier<unsigned>::WIN <= 32768,
+              "short offsets");
 
 __device__ __forceinline__ int mg_ring(int q) {
   return (q + MG_RING) % MG_RING;
@@ -75,14 +91,17 @@ __device__ __forceinline__ unsigned char target_code(int dy, int wl) {
 }  // namespace
 
 // grid: (column tiles, bands of MG_BAND rows); MG_THREADS threads.
+template <class Mask>
 __global__ void __launch_bounds__(MG_THREADS)
     migrate_kernel(const float* __restrict__ st, float* __restrict__ m9,
                    MigrateParams P) {
+  using T = MigrateTier<Mask>;
+  constexpr int MG_TILE = T::TILE, MG_WIN = T::WIN;
   extern __shared__ __align__(16) float sm[];
   const int K = P.K, W = P.W;
   const int E = K * MG_WIN;
   float* part = sm;                                 // [RING][PART][E]
-  unsigned* mask = reinterpret_cast<unsigned*>(part + MG_RING * MG_PART * E);
+  Mask* mask = reinterpret_cast<Mask*>(part + MG_RING * MG_PART * E);
   int* start = reinterpret_cast<int*>(mask + MG_WIN);   // [RING][WIN + 1]
   int* cnt = start + MG_RING * (MG_WIN + 1);        // [TILE]
   short* kept = reinterpret_cast<short*>(cnt + MG_TILE);   // [K][TILE]
@@ -101,9 +120,9 @@ __global__ void __launch_bounds__(MG_THREADS)
     return q >= 0 && q < P.rows ? st + q * rs + ST_OCC * plane : nullptr;
   };
 
-  RowOcc<MG_WIN, MG_OCC> ro;
+  RowOcc<MG_WIN, T::OCC> ro;
   ro.load(occ_row(p0 - 1), K, W, cw);
-  for (int i = tid; i < MG_WIN; i += nthr) mask[i] = 0u;
+  for (int i = tid; i < MG_WIN; i += nthr) mask[i] = 0;
   __syncthreads();
 
   for (int q = p0 - 1; q <= p1; ++q) {
@@ -145,7 +164,7 @@ __global__ void __launch_bounds__(MG_THREADS)
     // 3. rank the candidates of target row p = q-1, a warp per target
     // cell: rows p-1 .. p+1, cells c-1 .. c+1, slots, the first K kept
     const int p = q - 1;
-    for (int i = tid; i < MG_WIN; i += nthr) mask[i] = 0u;  // row q's read
+    for (int i = tid; i < MG_WIN; i += nthr) mask[i] = 0;   // row q's read
     if (p >= p0) {
       const bool prow = p >= 1 && p <= P.ny;   // apron rows take nothing
       int any = 0;
@@ -198,23 +217,37 @@ __global__ void __launch_bounds__(MG_THREADS)
   }
 }
 
-LPE_EXPORT int lpe_migrate(const float* st, float* m9, cudaStream_t stream,
+namespace {
+
+template <class Mask>
+cudaError_t launch_migrate(const float* st, float* m9, cudaStream_t stream,
                            const MigrateParams* P) {
-  if (P->K < 1 || P->K > 32 || P->rows < 3 || P->W < 1 || P->nx < 1 ||
-      P->nx > P->W - 2 || P->ny != P->rows - 2)
-    return (int)cudaErrorInvalidValue;
-  const int smem = migrate_smem(P->K);
+  using T = MigrateTier<Mask>;
+  const int smem = migrate_smem<Mask>(P->K);
   static int smem_set = 0;      // the largest dynamic size allowed so far
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        migrate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+        migrate_kernel<Mask>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
     smem_set = smem;
   }
-  const dim3 grid((P->W + MG_TILE - 1) / MG_TILE,
+  const dim3 grid((P->W + T::TILE - 1) / T::TILE,
                   (P->rows + MG_BAND - 1) / MG_BAND);
-  migrate_kernel<<<grid, MG_THREADS, smem, stream>>>(st, m9, *P);
-  return (int)cudaGetLastError();
+  migrate_kernel<Mask><<<grid, MG_THREADS, smem, stream>>>(st, m9, *P);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+LPE_EXPORT int lpe_migrate(const float* st, float* m9, cudaStream_t stream,
+                           const MigrateParams* P) {
+  if (P->K < 1 || P->K > 64 || P->rows < 3 || P->W < 1 || P->nx < 1 ||
+      P->nx > P->W - 2 || P->ny != P->rows - 2)
+    return (int)cudaErrorInvalidValue;
+  return (int)(P->K <= 32
+                   ? launch_migrate<unsigned>(st, m9, stream, P)
+                   : launch_migrate<unsigned long long>(st, m9, stream, P));
 }
 
 LPE_EXPORT const char* lpe_error_string(int err) {

@@ -37,6 +37,11 @@
 //   computes the density of SW_BAND + 2 for SW_BAND rows of forces; at 4
 //   rows DAM_BREAK 100k's 273 x 288 grid gives 9 x 69 = 621 blocks for the
 //   132 SMs (3 resident on each at K = 16).
+// - Two K tiers (SweepTier), one template: up to K = 32 a cell's slots are
+//   a 32-bit mask and a block owns 32 columns (the code the dam's K = 16
+//   always ran); from 33 to 64, the reference's cap, a 64-bit mask and 16
+//   columns: 32 columns at K = 64 would need 283,792 bytes of shared
+//   memory, over the 232,448 a block may have; 16 need 156,624.
 // - Threads take the row's live particles, not its slots, so warps run
 //   full. A block whose own cells hold no particle (most of a tank or dam:
 //   the TPU kernel skipped such slabs too) reads their occupancy once and
@@ -58,44 +63,53 @@
 
 namespace {
 
-constexpr int SW_TILE = 32;              // output columns of a block
 constexpr int SW_BAND = 4;               // interior rows of a block
-constexpr int SW_WIN = SW_TILE + 4;      // staged columns: two halo a side
 constexpr int SW_RING = 4;               // staged particle rows
 constexpr int SW_RHO_RING = 3;           // rows of density kept
 constexpr int SW_THREADS = 256;
 constexpr int SW_PART = 5;               // staged planes: x, y, vx, vy, m
-constexpr int SW_OCC = 5;                // occupancies a thread holds
-static_assert(32 * SW_WIN <= SW_OCC * SW_THREADS, "a row's window at K=32");
+
+template <class Mask>
+using SweepTier = StageTier<Mask, 2, SW_THREADS>;   // two halo columns
 
 // Bytes of shared memory of a block: floats part[RING][5][E],
-// rho[RHO_RING][2][E], out[3][K][TILE], then unsigned mask[RING][WIN], int
+// rho[RHO_RING][2][E], out[3][K][TILE], then Mask mask[RING][WIN] (the
+// floats before it are an even count: 8-byte aligned), int
 // start[RING][WIN + 1], then bytes slot[RING][E], cell[RING][E], with E =
-// K * WIN entries a row (71,824 bytes at K = 16).
+// K * WIN entries a row (71,824 bytes at K = 16). 32 columns at K = 64
+// would need 283,792.
+template <class Mask>
 constexpr int sweep_smem(int K) {
-  return 4 * (SW_RING * SW_PART * K * SW_WIN + SW_RHO_RING * 2 * K * SW_WIN +
-              3 * K * SW_TILE + SW_RING * SW_WIN + SW_RING * (SW_WIN + 1)) +
-         2 * SW_RING * K * SW_WIN;
+  using T = SweepTier<Mask>;
+  return 4 * (SW_RING * SW_PART * K * T::WIN +
+              SW_RHO_RING * 2 * K * T::WIN + 3 * K * T::TILE +
+              SW_RING * (T::WIN + 1)) +
+         (int)sizeof(Mask) * SW_RING * T::WIN + 2 * SW_RING * K * T::WIN;
 }
-// the most a block may have on Hopper (227 KB), at the largest K
-static_assert(sweep_smem(32) <= 232448, "shared memory at K = 32");
+// the most a block may have on Hopper (227 KB), at each tier's largest K
+static_assert(sweep_smem<unsigned>(32) <= 232448, "smem at K = 32");
+static_assert(sweep_smem<unsigned long long>(64) <= 232448,
+              "smem at K = 64");
 
 __device__ __forceinline__ int ring(int q) { return (q + SW_RING) % SW_RING; }
 
 }  // namespace
 
 // grid: (column tiles, bands of SW_BAND interior rows); SW_THREADS threads.
+template <class Mask>
 __global__ void __launch_bounds__(SW_THREADS)
     sweep_kernel(const float* __restrict__ m9, float* __restrict__ rho_o,
                  float* __restrict__ fx_o, float* __restrict__ fy_o,
                  SweepParams P) {
+  using T = SweepTier<Mask>;
+  constexpr int SW_TILE = T::TILE, SW_WIN = T::WIN;
   extern __shared__ __align__(16) float sm[];
   const int K = P.K, W = P.W, ny = P.rows - 2;
   const int E = K * SW_WIN;
   float* part = sm;                                   // [RING][5][E]
   float* rhor = part + SW_RING * SW_PART * E;         // [RHO_RING][2][E]
   float* sout = rhor + SW_RHO_RING * 2 * E;           // [3][K][TILE]
-  unsigned* mask = reinterpret_cast<unsigned*>(sout + 3 * K * SW_TILE);
+  Mask* mask = reinterpret_cast<Mask*>(sout + 3 * K * SW_TILE);
   int* start = reinterpret_cast<int*>(mask + SW_RING * SW_WIN);
   unsigned char* sslot =
       reinterpret_cast<unsigned char*>(start + SW_RING * (SW_WIN + 1));
@@ -124,19 +138,19 @@ __global__ void __launch_bounds__(SW_THREADS)
   }
 
   // the occupancy of a row's window, loaded one row ahead (stage.cuh)
-  RowOcc<SW_WIN, SW_OCC> ro;
+  RowOcc<SW_WIN, T::OCC> ro;
   auto load_occ = [&](int q) {
     ro.load(q >= 0 && q < P.rows ? occ + q * rs : nullptr, K, W, cw);
   };
   load_occ(p0 - 2);
-  for (int i = tid; i < SW_RING * SW_WIN; i += nthr) mask[i] = 0u;
+  for (int i = tid; i < SW_RING * SW_WIN; i += nthr) mask[i] = 0;
   __syncthreads();
 
   for (int q = p0 - 2; q <= p1 + 1; ++q) {
     // 1. stage row q: occupancy bits per window cell (its ring slot was
     // zeroed while row q-1 was staged)
     const int rq = ring(q);
-    unsigned* mq = mask + rq * SW_WIN;
+    Mask* mq = mask + rq * SW_WIN;
     ro.to_mask(mq);
     __syncthreads();
     // 2.-3. the live slots' planes, compacted cell by cell in slot order
@@ -153,7 +167,7 @@ __global__ void __launch_bounds__(SW_THREADS)
     });
     // row q-3's mask, last read by the previous row's output pass
     for (int i = tid; i < SW_WIN; i += nthr)
-      mask[ring(q + 1) * SW_WIN + i] = 0u;
+      mask[ring(q + 1) * SW_WIN + i] = 0;
     if (q <= p1) load_occ(q + 1);
     __syncthreads();
 
@@ -211,7 +225,7 @@ __global__ void __launch_bounds__(SW_THREADS)
       sout[2 * K * SW_TILE + o] = fya;
     }
     __syncthreads();
-    const unsigned* mf = mask + rf * SW_WIN;
+    const Mask* mf = mask + rf * SW_WIN;
     const size_t orow = (size_t)(f - 1) * plane;
     for (int i = tid; i < K * SW_TILE; i += nthr) {
       const int k = i / SW_TILE, t = i - k * SW_TILE, c = c0 + t;
@@ -225,22 +239,38 @@ __global__ void __launch_bounds__(SW_THREADS)
   }
 }
 
-LPE_EXPORT int lpe_pair_sweep(const float* m9, float* rho, float* fx,
-                              float* fy, cudaStream_t stream,
-                              const SweepParams* P) {
-  if (P->K < 1 || P->K > 32 || P->rows < 3 || P->W < 1)
-    return (int)cudaErrorInvalidValue;
-  const int smem = sweep_smem(P->K);
+namespace {
+
+template <class Mask>
+cudaError_t launch_sweep(const float* m9, float* rho, float* fx, float* fy,
+                         cudaStream_t stream, const SweepParams* P) {
+  using T = SweepTier<Mask>;
+  const int smem = sweep_smem<Mask>(P->K);
   static int smem_set = 0;      // the largest dynamic size allowed so far
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+        sweep_kernel<Mask>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
     smem_set = smem;
   }
   const int ny = P->rows - 2;
-  const dim3 grid((P->W + SW_TILE - 1) / SW_TILE,
+  const dim3 grid((P->W + T::TILE - 1) / T::TILE,
                   (ny + SW_BAND - 1) / SW_BAND);
-  sweep_kernel<<<grid, SW_THREADS, smem, stream>>>(m9, rho, fx, fy, *P);
-  return (int)cudaGetLastError();
+  sweep_kernel<Mask><<<grid, SW_THREADS, smem, stream>>>(m9, rho, fx, fy,
+                                                         *P);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+LPE_EXPORT int lpe_pair_sweep(const float* m9, float* rho, float* fx,
+                              float* fy, cudaStream_t stream,
+                              const SweepParams* P) {
+  if (P->K < 1 || P->K > 64 || P->rows < 3 || P->W < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)(P->K <= 32
+                   ? launch_sweep<unsigned>(m9, rho, fx, fy, stream, P)
+                   : launch_sweep<unsigned long long>(m9, rho, fx, fy,
+                                                      stream, P));
 }

@@ -18,9 +18,35 @@
 //    run of entries in (dx, slot) order.
 // An empty slot is read no further than its occupancy, so what it holds
 // never reaches an output.
+//
+// A mask word holds one bit a slot of a window cell: ``unsigned`` for
+// K <= 32 (the dam's K = 16 included), ``unsigned long long`` for 33 <= K
+// <= 64, the reference's cap (lpe_tpu/core/constants.py MAX_PER_CELL). The
+// kernels instantiate one tier each; the 32-bit one is the code that the
+// K <= 32 path always ran.
 #pragma once
 
 #include "common.cuh"
+
+__device__ __forceinline__ int popc(unsigned v) { return __popc(v); }
+__device__ __forceinline__ int popc(unsigned long long v) {
+  return __popcll(v);
+}
+
+// The K tier of a staged kernel whose blocks own TILE columns and stage
+// HALO more a side, with THREADS threads: up to K = 32 a 32-bit mask word
+// and 32 columns; from 33 to 64 a 64-bit word and 16 columns, so that a
+// row's window of K x WIN entries is no larger than at K = 32 (the sweep's
+// 1,280 against 1,152): the same occupancy registers a thread, and shared
+// memory within the 227 KB a block may have.
+template <class Mask, int HALO, int THREADS>
+struct StageTier {
+  static constexpr int KMAX = 8 * (int)sizeof(Mask);   // slots a word holds
+  static constexpr int TILE = KMAX == 32 ? 32 : 16;     // columns a block owns
+  static constexpr int WIN = TILE + 2 * HALO;           // staged columns
+  static constexpr int OCC = (KMAX * WIN + THREADS - 1) / THREADS;
+  static_assert(OCC <= 5, "a row's window in five occupancies a thread");
+};
 
 // The occupancy of one row's window, held in registers.
 template <int WIN, int NOCC>
@@ -43,14 +69,15 @@ struct RowOcc {
   }
 
   // Bit k of mask[l] for each live slot (the mask was zeroed before).
-  __device__ __forceinline__ void to_mask(unsigned* mask) const {
+  template <class Mask>
+  __device__ __forceinline__ void to_mask(Mask* mask) const {
     const int tid = threadIdx.x, nthr = blockDim.x;
 #pragma unroll
     for (int e = 0; e < NOCC; ++e)
       if (v[e] > 0.f) {
         const int i = tid + e * nthr;
         const int k = i / WIN;
-        atomicOr(&mask[i - k * WIN], 1u << k);
+        atomicOr(&mask[i - k * WIN], Mask(1) << k);
       }
   }
 };
@@ -64,14 +91,13 @@ struct RowScan {
 // Every warp scans the cells' live counts, two cells a lane, so that each
 // can hand its lanes' prefixes to stage_live; warp 0 writes start[0 ..
 // WIN]. The mask must be complete (a barrier after to_mask).
-template <int WIN>
-__device__ __forceinline__ RowScan stage_scan(const unsigned* mask,
-                                              int* start) {
+template <int WIN, class Mask>
+__device__ __forceinline__ RowScan stage_scan(const Mask* mask, int* start) {
   static_assert(WIN <= 64, "two window cells a lane");
   const int lane = threadIdx.x & 31;
   const int l0 = 2 * lane, l1 = 2 * lane + 1;
-  const int na = l0 < WIN ? __popc(mask[l0]) : 0;
-  const int nb = l1 < WIN ? __popc(mask[l1]) : 0;
+  const int na = l0 < WIN ? popc(mask[l0]) : 0;
+  const int nb = l1 < WIN ? popc(mask[l1]) : 0;
   int incl = na + nb;
   for (int o = 1; o < 32; o <<= 1) {
     const int v = __shfl_up_sync(0xffffffffu, incl, o);
@@ -88,8 +114,8 @@ __device__ __forceinline__ RowScan stage_scan(const unsigned* mask,
 
 // f(e, k, l, c) for every live slot of the row, e its compacted entry.
 // Every thread must call it (it shuffles).
-template <int WIN, class F>
-__device__ __forceinline__ void stage_live(const unsigned* mask, RowScan s,
+template <int WIN, class Mask, class F>
+__device__ __forceinline__ void stage_live(const Mask* mask, RowScan s,
                                            int K, int cw, F&& f) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   for (int i0 = 0; i0 < K * WIN; i0 += nthr) {
@@ -99,9 +125,9 @@ __device__ __forceinline__ void stage_live(const unsigned* mask, RowScan s,
     const int ex = __shfl_sync(0xffffffffu, s.excl, src);
     const int n0 = __shfl_sync(0xffffffffu, s.na, src);
     if (k >= K) continue;
-    const unsigned bits = mask[l];
+    const Mask bits = mask[l];
     if (!((bits >> k) & 1u)) continue;
-    f(ex + ((l & 1) ? n0 : 0) + __popc(bits & ((1u << k) - 1u)), k, l,
+    f(ex + ((l & 1) ? n0 : 0) + popc(bits & ((Mask(1) << k) - 1u)), k, l,
       cw + l);
   }
 }

@@ -1,17 +1,24 @@
-"""The grid-rigid narrowphase kernel, with its plain PyTorch version.
+"""The grid-rigid narrowphase kernels, with their plain PyTorch versions.
 
-``narrowphase`` launches the hand-written CUDA kernel
-``csrc/narrowphase.cu`` (built by ``_build.py``) for CUDA tensors and runs
-``narrowphase_plain`` for CPU tensors; any other device raises, and a CUDA
-input the kernel does not take raises too. ``narrowphase.launches`` and
-``narrowphase.plain_calls`` count the two; ``reset_counters()`` zeroes them.
-
-It replaces ``lpe_tpu/ops/pallas_rigid.py`` ``make_narrowphase`` and keeps
+Both replace ``lpe_tpu/ops/pallas_rigid.py`` ``make_narrowphase`` and keep
 its contract: rows of two polygon shapes in, ``(hit [N], nrm [N, 2],
 pen [N], pts [N, 2, 2], pens [N, 2], cval [N, 2])`` out, where ``cval`` is
 already ANDed with ``hit`` (the TPU kernel's ``oka``/``okb``). The plain
-version is the vmapped XLA pair it stands in for: ``geometry.sat_contact``
-then ``pipeline._pair_contacts`` with C = 2.
+version of a row is the vmapped XLA pair it stands in for:
+``geometry.sat_contact`` then ``pipeline._pair_contacts`` with C = 2.
+
+- ``narrowphase`` takes the rows' shapes as gathered tensors: the CUDA
+  kernel ``csrc/narrowphase.cu``, plain version ``narrowphase_plain``.
+- ``narrowphase_grid``, the rigid tick's, takes the body grids and the
+  rows' slots and reads the shapes by slot itself: the CUDA kernel
+  ``csrc/narrowphase_grid.cu``, plain version ``narrowphase_grid_plain``
+  (``grid_rows``'s gathers, then ``narrowphase_plain``). It also returns
+  the rows' side-A and side-B positions, which the solvers read.
+
+Each launches its kernel (built by ``_build.py``) for CUDA tensors and
+runs its plain version for CPU tensors; any other device raises, and a
+CUDA input the kernel does not take raises too. ``op.launches`` and
+``op.plain_calls`` count the two; ``reset_counters()`` zeroes them.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ from ..systems.rigid import geometry as geo
 from ..systems.rigid.pipeline import _pair_contacts
 from .sph_kernels import KernelOp, _check
 
-V_MIN, V_MAX = 3, 16      # the vertex counts csrc/narrowphase.cu instantiates
+V_MIN, V_MAX = 3, 16      # the vertex counts the kernels instantiate
+SMEM_MAX = 232448         # shared memory a block may have on Hopper
 
 
 def _shape(pos, angle, verts, nverts):
@@ -42,13 +50,17 @@ def narrowphase_plain(a_pos, a_angle, a_verts, a_nverts,
     return hit, nrm, pen, pts, pens, cval & hit[:, None]
 
 
+def _check_v(what, V):
+    if not (V_MIN <= V <= V_MAX):
+        raise ValueError(f"{what}: V={V} vertices per ring; the kernel "
+                         f"takes {V_MIN} to {V_MAX}")
+
+
 def _narrowphase_cuda(a_pos, a_angle, a_verts, a_nverts,
                       b_pos, b_angle, b_verts, b_nverts):
     from . import _build
     N, V = a_verts.shape[0], a_verts.shape[1]
-    if not (V_MIN <= V <= V_MAX):
-        raise ValueError(f"narrowphase: V={V} vertices per ring; the kernel "
-                         f"takes {V_MIN} to {V_MAX}")
+    _check_v("narrowphase", V)
     for side, (pos, ang, verts, nv) in (
             ("a", (a_pos, a_angle, a_verts, a_nverts)),
             ("b", (b_pos, b_angle, b_verts, b_nverts))):
@@ -60,22 +72,146 @@ def _narrowphase_cuda(a_pos, a_angle, a_verts, a_nverts,
     # takes them
     ca, sa_ = torch.cos(a_angle), torch.sin(a_angle)
     cb, sb_ = torch.cos(b_angle), torch.sin(b_angle)
-    dev = a_pos.device
-    f32 = torch.float32
-    hit = torch.empty((N,), dtype=torch.bool, device=dev)
-    nrm = torch.empty((N, 2), dtype=f32, device=dev)
-    pen = torch.empty((N,), dtype=f32, device=dev)
-    pts = torch.empty((N, 2, 2), dtype=f32, device=dev)
-    pens = torch.empty((N, 2), dtype=f32, device=dev)
-    cval = torch.empty((N, 2), dtype=torch.bool, device=dev)
+    outs = _row_outputs(N, a_pos.device)
     _build.call("lpe_narrowphase", a_pos, ca, sa_, a_verts, a_nverts,
-                b_pos, cb, sb_, b_verts, b_nverts, hit, nrm, pen, pts, pens,
-                cval, _build.NarrowParams(N, V))
-    return hit, nrm, pen, pts, pens, cval
+                b_pos, cb, sb_, b_verts, b_nverts, *outs,
+                _build.NarrowParams(N, V))
+    return outs
+
+
+def _row_outputs(N, dev):
+    """Empty (hit, nrm, pen, pts, pens, cval) for N rows."""
+    f32 = torch.float32
+    return (torch.empty((N,), dtype=torch.bool, device=dev),
+            torch.empty((N, 2), dtype=f32, device=dev),
+            torch.empty((N,), dtype=f32, device=dev),
+            torch.empty((N, 2, 2), dtype=f32, device=dev),
+            torch.empty((N, 2), dtype=f32, device=dev),
+            torch.empty((N, 2), dtype=torch.bool, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the grid form: rows named by slot in per-cell body grids
+# ---------------------------------------------------------------------------
+
+def grid_rows(g_pos, g_ang, g_verts, g_nverts, big_pos, big_ang, big_verts,
+              big_nverts, ka, kb, *, nbx, layout):
+    """The two shapes of each candidate row, gathered from the body grids
+    by slot: ((pos, angle, verts, nverts) of side A, the same of side B),
+    each [NC * R, ...], the rows of cell c at c * R .. c * R + R - 1.
+
+    The grids are the bodies in their cells' slots: g_pos [NC, KB, 2],
+    g_ang [NC, KB], g_verts [NC, KB, V, 2] (local), g_nverts [NC, KB]
+    int32, NC = nbx * nbx cells in row-major (y, x) order; big_* the same
+    of the NBIG big bodies, [NBIG, ...]. ka, kb [NC, R] int32: a row's slot
+    on side A (its own cell) and on side B. ``layout`` gives the row
+    classes in row order as (rows, dx, dy, big): side B of a row of class
+    (dx, dy) lies in cell ((cy + dy) mod nbx, (cx + dx) mod nbx), of a big
+    class (``big`` true) in the big bodies, at index kb."""
+    NC, KB = g_ang.shape
+    dev = ka.device
+    cell = torch.arange(NC, device=dev)
+    cy, cx = cell // nbx, cell % nbx
+    base = []
+    for rows, dx, dy, big in layout:
+        b = torch.full_like(cell, NC * KB) if big else \
+            ((cy + dy) % nbx * nbx + (cx + dx) % nbx) * KB
+        base.append(b[:, None].expand(NC, rows))
+    ia = (cell[:, None] * KB + ka.long()).reshape(-1)
+    ib = (torch.cat(base, dim=1) + kb.long()).reshape(-1)
+    side_a, side_b = [], []
+    for g, bg in ((g_pos, big_pos), (g_ang, big_ang), (g_verts, big_verts),
+                  (g_nverts, big_nverts)):
+        flat = g.reshape((NC * KB,) + g.shape[2:])
+        side_a.append(flat[ia])
+        side_b.append(torch.cat([flat, bg])[ib])
+    return tuple(side_a), tuple(side_b)
+
+
+def narrowphase_grid_plain(g_pos, g_ang, g_verts, g_nverts, big_pos,
+                           big_ang, big_verts, big_nverts, ka, kb, *, nbx,
+                           layout):
+    """``narrowphase_plain`` on the rows of ``grid_rows`` (same arguments):
+    (hit, nrm, pen, pts, pens, cval, pos_a [NC * R, 2], pos_b [NC * R,
+    2])."""
+    a, b = grid_rows(g_pos, g_ang, g_verts, g_nverts, big_pos, big_ang,
+                     big_verts, big_nverts, ka, kb, nbx=nbx, layout=layout)
+    return (*narrowphase_plain(*a, *b), a[0], b[0])
+
+
+def grid_passes(KB, NBIG, V, layout):
+    """Split the row classes into passes of csrc/narrowphase_grid.cu whose
+    staged bodies fit a block's shared memory: the own cell's KB, plus per
+    class its partner's (KB for a neighbour cell, NBIG for the big class,
+    none for the same cell). Returns (one past each pass's last class, the
+    staged bodies of the largest pass)."""
+    most = SMEM_MAX // (16 * V + 24)        # bytes a staged body takes
+    ends, n, nsb = [], KB, KB
+    for c, (_, dx, dy, big) in enumerate(layout):
+        need = NBIG if big else (0 if dx == dy == 0 else KB)
+        if n + need > most and n > KB:
+            ends.append(c)
+            n = KB
+        if n + need > most:
+            raise ValueError(f"narrowphase_grid: {KB} + {need} staged "
+                             f"bodies of {V} vertices exceed a block's "
+                             "shared memory")
+        n += need
+        nsb = max(nsb, n)
+    return ends + [len(layout)], nsb
+
+
+def _narrowphase_grid_cuda(g_pos, g_ang, g_verts, g_nverts, big_pos,
+                           big_ang, big_verts, big_nverts, ka, kb, *, nbx,
+                           layout):
+    from . import _build
+    NC, KB, V = g_verts.shape[:3]
+    NBIG, R = big_ang.shape[0], ka.shape[1]
+    _check_v("narrowphase_grid", V)
+    if nbx * nbx != NC or sum(c[0] for c in layout) != R or \
+            not 1 <= len(layout) <= _build.NG_MAX_CLS:
+        raise ValueError(f"narrowphase_grid: layout {layout} does not "
+                         f"give {R} rows to each of {nbx}x{nbx} cells")
+    for name, t, shape, dtype in (
+            ("g_pos", g_pos, (NC, KB, 2), torch.float32),
+            ("g_ang", g_ang, (NC, KB), torch.float32),
+            ("g_verts", g_verts, (NC, KB, V, 2), torch.float32),
+            ("g_nverts", g_nverts, (NC, KB), torch.int32),
+            ("big_pos", big_pos, (NBIG, 2), torch.float32),
+            ("big_ang", big_ang, (NBIG,), torch.float32),
+            ("big_verts", big_verts, (NBIG, V, 2), torch.float32),
+            ("big_nverts", big_nverts, (NBIG,), torch.int32),
+            ("ka", ka, (NC, R), torch.int32),
+            ("kb", kb, (NC, R), torch.int32)):
+        _check(f"narrowphase_grid {name}", t, shape, dtype)
+    # cos and sin exactly as the plain version (geometry.world_verts)
+    # takes them, once a body
+    ang = torch.cat([g_ang.reshape(-1), big_ang])
+    cs, sn = torch.cos(ang), torch.sin(ang)
+    outs = _row_outputs(NC * R, g_pos.device)
+    pos_a = torch.empty((NC * R, 2), dtype=torch.float32,
+                        device=g_pos.device)
+    pos_b = torch.empty_like(pos_a)
+    ends, nsb = grid_passes(KB, NBIG, V, layout)
+    P = _build.NarrowGridParams(NC, KB, R, NBIG, nbx, V, len(layout),
+                                len(ends), nsb)
+    end = 0
+    for c, (rows, dx, dy, big) in enumerate(layout):
+        end += rows
+        P.cls_end[c], P.cls_dx[c], P.cls_dy[c] = end, dx, dy
+        P.cls_big[c] = int(bool(big))
+    for q, e in enumerate(ends):
+        P.pass_end[q] = e
+    _build.call("lpe_narrowphase_grid", g_pos, cs, sn, g_verts, g_nverts,
+                big_pos, cs[NC * KB:], sn[NC * KB:], big_verts, big_nverts,
+                ka, kb, *outs, pos_a, pos_b, P)
+    return (*outs, pos_a, pos_b)
 
 
 narrowphase = KernelOp("narrowphase", narrowphase_plain, _narrowphase_cuda)
-OPS = (narrowphase,)
+narrowphase_grid = KernelOp("narrowphase_grid", narrowphase_grid_plain,
+                            _narrowphase_grid_cuda)
+OPS = (narrowphase, narrowphase_grid)
 
 
 def reset_counters():

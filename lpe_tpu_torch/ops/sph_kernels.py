@@ -44,7 +44,7 @@ RW_V0 = 13
 # columns per block of the coupling kernel: the granularity of its
 # per-block big-solid partial sums (``bigp``)
 BIG_BLOCK_COLS = 32
-MAX_K = 32          # the kernels keep one cell's K slots in one warp
+MAX_K = 64          # the kernels keep a cell's K slots in at most two warps
 
 
 def rig_width(V: int) -> int:

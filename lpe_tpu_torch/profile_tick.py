@@ -1,6 +1,9 @@
 """Time and profile the port's tick on one CUDA card.
 
-    python3 -m lpe_tpu_torch.profile_tick
+    python3 -m lpe_tpu_torch.profile_tick [SCENE ...]
+
+SCENE is any of dam, dam_split, dam_scatter, simple_fluid, rigid (all by
+default).
 
 A block is 10 ticks: one ``build_run_fn(ticks=10)`` call for DAM_BREAK
 100k (the grid stays resident across the block) and for RIGID_STACKS 10k
@@ -17,11 +20,13 @@ split density, force and coupling kernels) and with ``residency="off"``,
   all, that total over the timed runs' mean wall time per tick (the share
   of a tick in which the device was busy), and the kernel launches a tick;
 - for RIGID_STACKS, the device time per tick of the rigid system's
-  profiler ranges: the whole system, ``rigid.rows`` (guard, rebuild and
-  row selects), ``rigid.rebuild`` within it, ``rigid.narrowphase`` (the
-  wrapper's PyTorch ops; the profiler does not tie the kernel, launched
-  through ctypes, to a range, so its time comes from its name), and the
-  solvers (the rest), with the guard's rebuilds per tick.
+  profiler ranges: the whole system, ``rigid.rows`` (guard, rebuild, the
+  per-tick grids and the rows' mass selects), ``rigid.rebuild`` within it
+  and the rest of it, ``rigid.narrowphase`` (the wrapper's PyTorch ops;
+  the profiler does not tie a kernel launched through ctypes to a range,
+  so the narrowphase kernels' time comes from their names), the rows
+  without the rebuild plus the narrowphase, and the solvers (the rest),
+  with the guard's rebuilds per tick.
 
 The card's name and power limit come first, as ``nvidia-smi`` gives them.
 """
@@ -40,7 +45,8 @@ RIGID_N = 10_000
 BLOCKS, RUNS, TOP = 5, 3, 8
 PORT_KERNELS = ("migrate_kernel", "sweep_kernel",
                 "coupling9_kernel", "split_density_kernel",
-                "split_force_kernel", "coupling_kernel", "narrowphase_kernel")
+                "split_force_kernel", "coupling_kernel", "narrowphase_kernel",
+                "narrowphase_grid_kernel")
 DAM_FLUID = {   # scene name -> FluidConfig fields of that dam configuration
     "dam": {},
     "dam_split": dict(pair_backend="pallas"),
@@ -163,15 +169,24 @@ def profile_scene(name, device):
     if name == "rigid":
         rt = {k: v / 1e3 / BLOCK for k, v in _range_times(prof).items()}
         solver = rt["rigid"] - rt["rigid.rows"] - rt["rigid.narrowphase"]
-        npk = per_tick.get("narrowphase_kernel", 0.0)
+        npk = per_tick.get("narrowphase_kernel", 0.0) + \
+            per_tick.get("narrowphase_grid_kernel", 0.0)
+        rows = rt["rigid.rows"] - rt["rigid.rebuild"]
+        nph = rt["rigid.narrowphase"] + npk
         print(f"{label}: rigid system ranges, device ms per tick: all "
               f"{rt['rigid'] + npk:.4f}, rows {rt['rigid.rows']:.4f} "
-              f"(rebuild {rt['rigid.rebuild']:.4f}), narrowphase "
-              f"{rt['rigid.narrowphase'] + npk:.4f} (kernel {npk:.4f}), "
-              f"solvers (the rest) {solver:.4f}", flush=True)
+              f"(rebuild {rt['rigid.rebuild']:.4f}, the rest {rows:.4f}), "
+              f"narrowphase {nph:.4f} (kernel {npk:.4f}); rows without "
+              f"the rebuild plus narrowphase {rows + nph:.4f}; solvers (the "
+              f"rest) {solver:.4f}", flush=True)
 
 
-def main():
+def main(argv=None):
+    import sys
+    names = (*DAM_FLUID, "simple_fluid", "rigid")
+    want = list(sys.argv[1:] if argv is None else argv) or names
+    if set(want) - set(names):
+        raise SystemExit(f"profile_tick: scenes are {', '.join(names)}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_tick: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -179,7 +194,7 @@ def main():
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
-    for name in (*DAM_FLUID, "simple_fluid", "rigid"):
+    for name in want:
         profile_scene(name, dev)
 
 

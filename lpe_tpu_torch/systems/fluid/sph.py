@@ -124,6 +124,19 @@ def coupling_dims(spec, cfg):
                 slack_cells=float(fc.coupling_raster_slack_cells))
 
 
+def grid_slots(max_per_cell: int, n_liquid: int, device) -> int:
+    """K, the slots of a grid cell: ``max_per_cell``, at most the liquid
+    particles. On a CUDA device a K above the kernels' ``SK.MAX_K`` (64,
+    the reference's cap) raises ``ValueError``; the CPU takes any K."""
+    K = max(1, min(max_per_cell, n_liquid))
+    if torch.device(device).type == "cuda" and K > SK.MAX_K:
+        raise ValueError(
+            f"fluid.grid.max_per_cell = {max_per_cell} gives {K} slots a "
+            f"cell; the CUDA SPH kernels take at most {SK.MAX_K}, the "
+            f"reference's cap: lower max_per_cell, or run on the CPU")
+    return K
+
+
 def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                       device, mesh=None):
     """The fluid step of ``cfg.fluid.residency`` and ``pair_backend``. The
@@ -141,13 +154,7 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             "mixed per-particle smoothing lengths are not ported yet "
             "(ROADMAP.md Queue 1 item 5)")
     NL = spec.n_liquid
-    K = max(1, min(fc.grid.max_per_cell, NL))
-    if torch.device(device).type == "cuda" and K > SK.MAX_K:
-        raise ValueError(
-            f"fluid.grid.max_per_cell = {fc.grid.max_per_cell} gives {K} "
-            f"slots a cell; the CUDA SPH kernels take at most "
-            f"{SK.MAX_K} (ROADMAP.md Queue 3 item 1 lifts it to 64): "
-            f"lower max_per_cell, or run on the CPU")
+    K = grid_slots(fc.grid.max_per_cell, NL, device)
     if fc.residency not in ("auto", "on", "off"):
         raise ValueError(f"unknown residency {fc.residency!r}")
     if fc.pair_backend not in ("auto", "sweep", "pallas"):

@@ -7,15 +7,18 @@ row tensors [NC, R] with a static class layout over the forward
 half-stencil (same cell, E, SW, S, SE) plus a "big solid" class for the
 walls kept off the grid; a row holds (own slot, partner slot) and its class
 implies the partner cell, reached by rolling the grid. The narrowphase runs
-over all NC * R rows (``ops/rigid_kernels.py``: a CUDA kernel on the card),
-and both solvers iterate on the dense grids, one mass-splitting Jacobi pass
-per class, the six class passes in turn (staged Gauss-Seidel).
+over all NC * R rows (``ops/rigid_kernels.narrowphase_grid``: on the card a
+CUDA kernel that reads the body grids by slot itself), and both solvers
+iterate on the dense grids, one mass-splitting Jacobi pass per class, the
+six class passes in turn (staged Gauss-Seidel).
 
 The semantics are lpe_tpu's; the TPU layout is not kept:
 
 - a row picks a body's fields by slot with ``torch.gather`` (``_sel``),
   where lpe_tpu used a one-hot broadcast-reduce because gathers were slow
-  on the TPU; the values are the same;
+  on the TPU; the values are the same. The rows' shapes are not gathered
+  here at all: the narrowphase reads them from the grids (its plain
+  version, ``rigid_kernels.grid_rows``, gathers them);
 - ``_place`` ranks and scatters where lpe_tpu unrolled one reduction per
   output slot; every target is written once, so the integers are the same;
 - ``_scat`` keeps the broadcast-reduce: float atomics would make the sum's
@@ -23,8 +26,9 @@ The semantics are lpe_tpu's; the TPU layout is not kept:
 - ``lax.cond`` on the displacement guard becomes one host read of ``need``
   per tick (``step.guard_reads`` counts them, ``step.rebuilds`` the ticks
   that rebuilt), and ``fori_loop`` a Python loop;
-- profiler ranges ``rigid.rows`` (guard, rebuild, row selects; within it
-  ``rigid.rebuild``) and ``rigid.narrowphase`` take the place of
+- profiler ranges ``rigid.rows`` (guard, rebuild, per-tick grids and the
+  rows' mass selects; within it ``rigid.rebuild``) and
+  ``rigid.narrowphase`` take the place of
   ``jax.named_scope``; the solvers are the rest of the system's range;
 - ``_rebuild`` assigns slots with a STABLE argsort, so the bodies of a cell
   take ascending slots in body order. lpe_tpu's ``jnp.argsort(cid,
@@ -172,8 +176,9 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         raise ValueError(f"narrowphase_backend={nb!r}")
     # "auto"/"pallas": the kernel wrapper (the CUDA kernel for CUDA tensors,
     # its plain version for CPU ones); "xla": the plain geometry path itself
-    from ...ops.rigid_kernels import narrowphase, narrowphase_plain
-    narrow = narrowphase_plain if nb == "xla" else narrowphase
+    from ...ops import rigid_kernels as RK
+    narrow = RK.narrowphase_grid_plain if nb == "xla" else \
+        RK.narrowphase_grid
     slack = float(bp.persist_slack_m)
     nbx, cellb, KB, caps = gd["nbx"], gd["cellb"], gd["KB"], gd["caps"]
     NC, R = gd["NC"], gd["R"]
@@ -201,6 +206,9 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                             sl=slice(base, base + caps[5])))
         base += caps[5]
     assert base == R
+    # the classes as the narrowphase takes them: (rows, dx, dy, big)
+    layout = tuple((c["sl"].stop - c["sl"].start, c["dx"], c["dy"],
+                    c["kind"] == "big") for c in classes)
     # per-(lo-slot) stage-1 caps: how many rows one body can own per class
     # before the per-cell compaction
     RK = {"same": max(6, caps[0] // 4), "off": max(4, caps[1] // 4),
@@ -379,7 +387,8 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     # ------------------------------------------------------------------ tick
     def _rows(state):
         """The displacement guard, rebuild or reuse, the per-tick body
-        grids and the two shapes of every candidate row."""
+        grids, the narrowphase's arguments (the shape grids and the rows'
+        slots) and the rows' masses and inertias."""
         b = state.bodies
         # displacement guard (pipeline.py:256-283 semantics)
         vmask = viota[None, :] < b.nverts[:S, None]
@@ -420,79 +429,59 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         g_ang = tg(b.angle[:S])
         g_u = tg(torch.cat([b.vel[:S], b.omega[:S, None]], dim=1))
 
-        # ---- per-row shapes via class-wise slot selects ----
+        # ---- the narrowphase's grids, and the rows' masses by slot ----
+        big_pos, big_ang = b.pos[big_ids], b.angle[big_ids]
+        nargs = (g_pos.reshape(NC, KB, 2), g_ang.reshape(NC, KB),
+                 g_verts.reshape(NC, KB, VS, 2), g_nverts.reshape(NC, KB),
+                 big_pos, big_ang, b.verts[big_ids, :VS], b.nverts[big_ids],
+                 rg_ka, rg_kb)
+        big_shape = None
         if NBIG:
             big_shape = dict(
-                pos=b.pos[big_ids], angle=b.angle[big_ids],
-                verts=b.verts[big_ids, :VS], nverts=b.nverts[big_ids],
+                pos=big_pos, angle=big_ang,
                 invm=_inv_mass(b)[big_ids], invi=_inv_inertia(b)[big_ids],
                 u=torch.cat([b.vel[big_ids], b.omega[big_ids, None]], dim=1))
-
-        own = dict(verts=g_verts.reshape(NC, KB, VS, 2),
-                   nverts=g_nverts.reshape(NC, KB),
-                   pos=g_pos.reshape(NC, KB, 2), angle=g_ang.reshape(NC, KB))
         Gim = g_invm.reshape(NC, KB)
         Gii = g_invi.reshape(NC, KB)
 
-        def sel_shape(shape_grids, k):
-            return {key: _sel(g, k) for key, g in shape_grids.items()}
-
-        sa_parts, sb_parts, row_imb, row_iib = [], [], [], []
+        row_imb, row_iib = [], []
         for cls in classes:
-            sl = cls["sl"]
-            ka, kb = rg_ka[:, sl], rg_kb[:, sl]
-            sa_parts.append(sel_shape(own, ka))
+            kb = rg_kb[:, cls["sl"]]
             if cls["kind"] == "big":
                 kbl = kb.long()
-                sb_parts.append({key: big_shape[key][kbl] for key in own})
                 row_imb.append(big_shape["invm"][kbl])
                 row_iib.append(big_shape["invi"][kbl])
             else:
                 dx, dy = cls["dx"], cls["dy"]
-                sb_parts.append(sel_shape(
-                    {key: roll_cells(g, dx, dy) for key, g in own.items()},
-                    kb))
                 row_imb.append(_sel(roll_cells(Gim, dx, dy), kb))
                 row_iib.append(_sel(roll_cells(Gii, dx, dy), kb))
+        rows = (_sel(Gim, rg_ka), _sel(Gii, rg_ka),
+                torch.cat(row_imb, dim=1), torch.cat(row_iib, dim=1))
+        return grids, (g_pos, g_ang, g_u), nargs, rows, big_shape
 
-        def cat(parts):
-            return {key: torch.cat([p[key] for p in parts], dim=1)
-                    for key in parts[0]}
-
-        sa = cat(sa_parts)
-        sb = cat(sb_parts)
-        im_b_r = torch.cat(row_imb, dim=1)
-        ii_b_r = torch.cat(row_iib, dim=1)
-        rows = (sa, sb, _sel(Gim, rg_ka), _sel(Gii, rg_ka), im_b_r, ii_b_r)
-        return grids, (g_pos, g_ang, g_u), rows, \
-            (big_shape if NBIG else None)
-
-    def _narrowphase_args(sa, sb):
-        """[NC*R] rows of (pos, angle, verts, nverts) of side A, then of
-        side B: the narrowphase's inputs."""
-        return tuple(v[key].reshape((NC * R,) + v[key].shape[2:])
-                     for v in (sa, sb)
-                     for key in ("pos", "angle", "verts", "nverts"))
-
-    def narrowphase_inputs(state):
-        """The tensors this state's tick hands the narrowphase kernel. Runs
+    def narrowphase_args(state):
+        """The arguments this state's tick hands the narrowphase: the
+        tensors and the keywords of ``rigid_kernels.narrowphase_grid``
+        (``rigid_kernels.grid_rows`` takes the same and gives the row-form
+        kernel's), and which rows are candidates (rg_valid [NC, R]). Runs
         the guard (and the rebuild it may call for) as a tick would."""
-        _, _, (sa, sb, *_), _ = _rows(state)
-        return _narrowphase_args(sa, sb)
+        grids, _, nargs, _, _ = _rows(state)
+        return nargs, dict(nbx=nbx, layout=layout), grids[4]
 
     def step(state: SimState) -> SimState:
         b = state.bodies
         with record_function("rigid.rows"):
-            grids, (g_pos, g_ang, g_u), rows, big_shape = _rows(state)
+            grids, (g_pos, g_ang, g_u), nargs, rows, big_shape = \
+                _rows(state)
         (flat, table, rg_ka, rg_kb, rg_valid, g_verts, g_nverts, g_radius,
          g_iscirc, g_invm, g_invi, anc_p, anc_a,
          warm_n, warm_t, warm_pt, warm_nrm) = grids
-        sa, sb, im_a_r, ii_a_r, im_b_r, ii_b_r = rows
+        im_a_r, ii_a_r, im_b_r, ii_b_r = rows
 
         # ---- narrowphase: SAT + incident-edge clip over [NC*R] rows ----
         with record_function("rigid.narrowphase"):
-            hit, nrm, pen, pts, pens, cval = narrow(
-                *_narrowphase_args(sa, sb))
+            hit, nrm, pen, pts, pens, cval, pos_a, pos_b = narrow(
+                *nargs, nbx=nbx, layout=layout)
         nrm = nrm.reshape(NC, R, 2)
         valid = (rg_valid & hit.reshape(NC, R))[..., None] \
             & cval.reshape(NC, R, C)
@@ -516,8 +505,8 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         # ---- per-row solver constants ----
         nh = geo._unit(nrm)
         th = torch.stack([-nh[..., 1], nh[..., 0]], dim=-1)
-        ra = pts - sa["pos"][:, :, None, :]                   # [NC,R,C,2]
-        rb = pts - sb["pos"][:, :, None, :]
+        ra = pts - pos_a.reshape(NC, R, 1, 2)                 # [NC,R,C,2]
+        rb = pts - pos_b.reshape(NC, R, 1, 2)
         ra_xn = _cross2(ra, nh[:, :, None, :])
         rb_xn = _cross2(rb, nh[:, :, None, :])
         ra_xt = _cross2(ra, th[:, :, None, :])
@@ -706,5 +695,5 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
 
     step.guard_reads = 0
     step.rebuilds = 0
-    step.narrowphase_inputs = narrowphase_inputs
+    step.narrowphase_args = narrowphase_args
     return step

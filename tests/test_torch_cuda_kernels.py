@@ -403,7 +403,7 @@ def test_cuda_sweep_and_coupling9_equal_their_twins(rows, cols):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K, full", [(16, False), (32, True)])
+@pytest.mark.parametrize("K, full", [(16, False), (32, True), (64, True)])
 def test_cuda_migrate_and_force_on_a_multi_block_grid(K, full):
     """migrate and the force pass on a grid of several tiles and bands of
     their blocks, with crowds on tile and band edges fed across them: M9
@@ -466,7 +466,7 @@ def _plant_nan(stack, occ_plane):
 @pytest.mark.cuda
 @pytest.mark.parametrize("K, full, empty_tiles", [
     (16, False, False), (16, False, True), (32, True, False),
-    (32, True, True)])
+    (32, True, True), (64, True, False), (64, True, True)])
 def test_cuda_staged_density_on_a_multi_block_grid(K, full, empty_tiles):
     """The staged density kernel on the crowded grid of several tiles and
     bands (with ``empty_tiles``, widened by empty tiles and bands, whose
@@ -498,9 +498,11 @@ def test_cuda_staged_density_on_a_multi_block_grid(K, full, empty_tiles):
 
 
 @pytest.mark.cuda
-def test_cuda_couplings_at_k32():
-    """The coupling kernel at K = 32 (the seeded sub-step with its slots
-    padded from 16 to 32; a block of 1024 threads) against coupling_plain,
+@pytest.mark.parametrize("K2", [32, 64])
+def test_cuda_couplings_at_k32(K2):
+    """The coupling kernel at K2 = 32 and 64 (the seeded sub-step with its
+    slots padded from 16; a block of 1024 threads, at 64 two slots a
+    thread) against coupling_plain,
     on cells that copy through (cpl 0, as on the dam's main path) and on
     cells that couple with the test rigids (cpl 1 on occupied cells), at
     the tolerances of test_cuda_split_kernels_match_plain: its outputs
@@ -519,14 +521,14 @@ def test_cuda_couplings_at_k32():
     cn = dict(_cn(), V=V, half_dt=HALF_DT, stiffness=FC.stiffness)
     coupled = (m9[:, SK.M9_OCC].sum(1) > 0).to(torch.int32).contiguous()
     d10s = {}
-    for k2 in (K, 32):
+    for k2 in (K, K2):
         x, y, vx, vy, m, occ, hx, hy, pid = _pad_slots(m9, k2).unbind(1)
         sw = SK.pair_sweep(_pad_slots(m9, k2), **SWEEP)
         rho, fx, fy = (pad(v) for v in sw)
         pe = torch.clamp(FC.stiffness * (rho - FC.rest_density), min=0.0)
         d10s[k2] = torch.stack([x, y, hx + HALF_DT * fx, hy + HALF_DT * fy,
                                 rho, pe, m, occ, fx, fy], 1)
-    d10 = d10s[32]
+    d10 = d10s[K2]
     empty = d10[:, SK.D10_OCC] <= 0
     for cpl in (torch.zeros_like(coupled), coupled):
         args = [cpl, fld, big, d10]
@@ -537,7 +539,7 @@ def test_cuda_couplings_at_k32():
             atol = max(1e-5, 1e-6 * a_scale) if f in (4, 5) else 1e-5
             torch.testing.assert_close(u.cpu(), v.cpu(), rtol=0, atol=atol)
         out16 = SK.coupling(cpl, fld, big, d10s[K], cn=cn)
-        st9, pl9, bigp9 = SK.coupling9(cpl, fld, big, _pad_slots(m9, 32),
+        st9, pl9, bigp9 = SK.coupling9(cpl, fld, big, _pad_slots(m9, K2),
                                        *sw, cn=cn)
         ref9 = torch.stack([*out[:6], m, pid, occ], 1)
         ref9[0] = ref9[-1] = 0.0
@@ -560,19 +562,21 @@ def test_cuda_couplings_at_k32():
 
 
 @pytest.mark.cuda
-def test_cuda_couplings_on_full_cells_at_k32():
-    """coupling and coupling9 at K = 32 on the crowded multi-block grid
-    with its 3x3 block of full cells (32 live slots each, so every warp of
-    those blocks lists live particles), the test rigids moved over that
-    block and cpl 1 on every occupied cell: coupling within the tolerances
-    of test_cuda_split_kernels_match_plain of coupling_plain, particles of
-    slots 16-31 moved by the rigids, and coupling9 on the same sub-step
-    with the same bits. NaN in every plane but the occupancy of D10's empty
-    slots reaches only those slots' own outputs."""
+@pytest.mark.parametrize("K2", [32, 64])
+def test_cuda_couplings_on_full_cells_at_k32(K2):
+    """coupling and coupling9 at K2 = 32 and 64 on the crowded multi-block
+    grid with its 3x3 block of full cells (K2 live slots each, so every
+    warp of those blocks lists live particles, at 64 for both of its
+    thread's slots), the test rigids moved over that block and cpl 1 on
+    every occupied cell: coupling within the tolerances of
+    test_cuda_split_kernels_match_plain of coupling_plain, particles of
+    slots 16 and up (at 64: 32 and up) moved by the rigids, and coupling9
+    on the same sub-step with the same bits. NaN in every plane but the
+    occupancy of D10's empty slots reaches only those slots' own
+    outputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
     pad = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
-    K2 = 32
     st = torch.from_numpy(_crowded_st(K2, full=True)).cuda()
     m9 = SK.migrate(st, **dict(MIG, nx=CROWD_NX))
     x, y, vx, vy, m, occ, hx, hy, pid = m9.unbind(1)
@@ -599,7 +603,7 @@ def test_cuda_couplings_on_full_cells_at_k32():
         torch.testing.assert_close(u.cpu(), v.cpu(), rtol=0, atol=atol)
     live = occ > 0
     moved = ((out[0] != x) | (out[1] != y)) & live
-    assert int(moved[:, K:].sum()) > 0                # slots 16-31 coupled
+    assert int(moved[:, K2 // 2:].sum()) > 0          # the upper slots
     assert float(out[6].abs().max()) > 1e-3 and float(out[7].abs().max()) > 0
     st9, pl9, bigp9 = SK.coupling9(cpl, fld, big, m9, *sw, cn=cn)
     ref9 = torch.stack([*out[:6], m, pid, occ], 1)

@@ -266,13 +266,15 @@ def test_twelve_ticks_within_lpe_tpus_slot_order_response(ref, port):
     sx = _grid_scene("torch", backend="xla")
     RK.reset_counters()
     tick1 = build_tick_fn(sx.spec, sx.cfg, device="cpu")(sx.state)
-    assert RK.narrowphase.plain_calls == RK.narrowphase.launches == 0
+    for op in RK.OPS:
+        assert op.plain_calls == op.launches == 0
     np.testing.assert_array_equal(tick1.bodies.pos.numpy(),
                                   port["tick1"].bodies.pos.numpy())
     sc = port["sc"]
     s = build_run_fn(sc.spec, sc.cfg, ticks=TICKS, device="cpu")(sc.state)
-    assert RK.narrowphase.plain_calls == TICKS
-    assert RK.narrowphase.launches == 0
+    assert RK.narrowphase_grid.plain_calls == TICKS
+    assert RK.narrowphase_grid.launches == 0
+    assert RK.narrowphase.plain_calls == RK.narrowphase.launches == 0
     got = s.bodies.pos.numpy()[4:4 + N_BODIES]
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=spread)
@@ -311,8 +313,9 @@ def test_rigid_stacks_scene_is_lpe_tpus(n):
 
 def test_big_scene_dispatch_takes_the_kernel_wrapper():
     """Above broadphase.dense_max_solids (1024) solids the rigid system is
-    the grid pipeline, and its narrowphase goes through the kernel wrapper,
-    which takes the plain version for CPU tensors."""
+    the grid pipeline, and its narrowphase goes through the grid kernel's
+    wrapper (``narrowphase_grid``, which reads the body grids by slot on
+    the card), which takes the plain version for CPU tensors."""
     from lpe_tpu_torch.ops import rigid_kernels as RK
     from lpe_tpu_torch.scenarios.bench_scenes import build_rigid_stacks
     from lpe_tpu_torch.systems import build_tick_fn
@@ -324,9 +327,102 @@ def test_big_scene_dispatch_takes_the_kernel_wrapper():
     RK.reset_counters()
     s = tick(sc.state)
     assert (step.guard_reads, step.rebuilds) == (1, 1)
-    assert RK.narrowphase.plain_calls == 1 and RK.narrowphase.launches == 0
+    assert RK.narrowphase_grid.plain_calls == 1
+    assert RK.narrowphase_grid.launches == 0
+    assert RK.narrowphase.plain_calls == RK.narrowphase.launches == 0
     assert int(s.rg_valid.sum()) > 0
     assert bool(torch.isfinite(s.bodies.pos).all())
+
+
+def _old_row_gathers(nargs, nbx, layout):
+    """The rows' shapes as the rigid tick gathered them before the grid
+    narrowphase read the grids itself: per class, side A's slots selected
+    from the grids, side B's from the grids rolled by the class's offset
+    (or from the big bodies), then the classes concatenated. Returns the
+    row-form narrowphase's arguments."""
+    g_pos, g_ang, g_verts, g_nverts, b_pos, b_ang, b_verts, b_nv, ka, kb = \
+        nargs
+    keys = ("pos", "angle", "verts", "nverts")
+    own = dict(zip(keys, (g_pos, g_ang, g_verts, g_nverts)))
+    big = dict(zip(keys, (b_pos, b_ang, b_verts, b_nv)))
+
+    def sel(grid, k):
+        idx = k.long().reshape(k.shape + (1,) * (grid.dim() - 2))
+        return grid.gather(1, idx.expand(k.shape + grid.shape[2:]))
+
+    def roll(g, dx, dy):
+        g2 = g.reshape((nbx, nbx) + g.shape[1:])
+        return torch.roll(g2, (-dy, -dx), dims=(0, 1)).reshape(g.shape)
+
+    sa, sb = {k: [] for k in keys}, {k: [] for k in keys}
+    base = 0
+    for rows, dx, dy, is_big in layout:
+        a_, b_ = ka[:, base:base + rows], kb[:, base:base + rows]
+        for k in keys:
+            sa[k].append(sel(own[k], a_))
+            sb[k].append(big[k][b_.long()] if is_big
+                         else sel(roll(own[k], dx, dy), b_))
+        base += rows
+    return [torch.cat(side[k], 1).reshape((-1,) + own[k].shape[2:])
+            for side in (sa, sb) for k in keys]
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _rigid_stacks_1100():
+    from lpe_tpu_torch.scenarios.bench_scenes import build_rigid_stacks
+    return build_rigid_stacks(1100, seed=0, device="cpu")
+
+
+@pytest.mark.parametrize("scene", ["rigid_stacks_1100", "grid96"])
+def test_grid_narrowphase_plain_equals_the_old_row_gathers(scene, port):
+    """narrowphase_grid's plain version (rigid_kernels.grid_rows, then
+    narrowphase_plain) gives, bit for bit, what narrowphase_plain gave on
+    the rows the tick gathered by class before (rolled grids, slot
+    selects, concatenation): its row inputs, its six results and the rows'
+    side-A and side-B positions, on every row, valid or not."""
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    from lpe_tpu_torch.systems import build_tick_fn
+    sc = _rigid_stacks_1100() if scene == "rigid_stacks_1100" else \
+        port["sc"]
+    step = build_tick_fn(sc.spec, sc.cfg, device="cpu").systems["rigid"]
+    nargs, kw, valid = step.narrowphase_args(sc.state)
+    assert valid.shape == nargs[-1].shape and int(valid.sum()) > 0
+    old = _old_row_gathers(nargs, **kw)
+    a, b = RK.grid_rows(*nargs, **kw)
+    assert all(_same_bits(u, v) for u, v in zip((*a, *b), old))
+    got = RK.narrowphase_grid_plain(*nargs, **kw)
+    want = (*RK.narrowphase_plain(*old), old[0], old[4])
+    assert len(got) == len(want) == 8
+    assert all(_same_bits(u, v) for u, v in zip(got, want))
+    assert int(got[0].sum()) > 0                    # some rows hit
+
+
+def test_cpu_tick_auto_equals_xla_bit_for_bit():
+    """A RIGID_STACKS 1100 tick with narrowphase_backend="auto" (the
+    kernel wrapper, whose plain version runs on the CPU) and one with "xla"
+    (the plain geometry path) give the same state, every field, bit for
+    bit."""
+    import dataclasses as dc
+    from lpe_tpu_torch.systems import build_run_fn
+    sc = _rigid_stacks_1100()
+    assert sc.cfg.rigid.narrowphase_backend == "auto"
+    xla = sc.cfg.replace(rigid=dc.replace(sc.cfg.rigid,
+                                          narrowphase_backend="xla"))
+    outs = [build_run_fn(sc.spec, cfg, ticks=1, device="cpu")(sc.state)
+            for cfg in (sc.cfg, xla)]
+    n = 0
+    for u, v in ((outs[0], outs[1]), (outs[0].bodies, outs[1].bodies)):
+        for f in dc.fields(u):
+            x, y = getattr(u, f.name), getattr(v, f.name)
+            if isinstance(x, torch.Tensor):
+                assert _same_bits(x, y), f.name
+                n += 1
+    assert n > 20 and int(outs[0].rg_valid.sum()) > 0
 
 
 def test_circle_grid_scene_is_refused():

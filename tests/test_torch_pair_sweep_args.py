@@ -1,9 +1,10 @@
 """The argument checks of the CUDA wrappers of the four staged kernels
 (the pair sweep, migrate and the split density and force passes), on the
 CPU: they raise before anything is built or launched, and on a CPU tensor
-each op runs its plain version. The launches themselves (32-column tiles,
-bands of rows, shared memory) are sized in csrc/pair_sweep.cu, migrate.cu,
-density.cu and force.cu, each of which holds its shared memory at K = 32
+each op runs its plain version. The launches themselves (tiles of 32
+columns up to K = 32 and of 16 from 33 to 64, bands of rows, shared
+memory) are sized in csrc/pair_sweep.cu, migrate.cu, density.cu and
+force.cu, each of which holds its shared memory at K = 32 and at K = 64
 under the 227 KB a Hopper block may have at compile time.
 test_torch_cuda_kernels.py and chip_smoke.py hold the kernels against
 their plain versions and their twins to the bit on the card, on grids
@@ -33,7 +34,7 @@ STAGED = {   # op -> (its CUDA wrapper, planes of its input, its constants)
 @pytest.mark.parametrize("name", STAGED)
 @pytest.mark.parametrize("rows, dplanes, K, match", [
     (6, 0, 0, "K must be in"),                 # no slot
-    (6, 0, 33, "K must be in"),                # more slots than a mask
+    (6, 0, 65, "K must be in"),                # more slots than two words
     (3, 0, 16, "rows >= 4"),                   # fewer than two interior rows
     (6, -1, 16, r"expected \[rows, {planes}"),  # a stack of the wrong planes
 ])
@@ -51,7 +52,7 @@ def test_migrate_wrapper_refuses_nx_that_does_not_fit():
 
 
 @pytest.mark.parametrize("name", STAGED)
-@pytest.mark.parametrize("K", [1, 16, 32])
+@pytest.mark.parametrize("K", [1, 16, 32, 64])
 def test_staged_wrapper_takes_no_cpu_tensor(name, K):
     # a grid it can launch gets past the shape checks; on a CPU tensor the
     # wrapper raises rather than run the plain version

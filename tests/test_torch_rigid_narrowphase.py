@@ -172,13 +172,88 @@ def test_match_warm_impulses_bitwise(slot_fallback):
     assert 0 < n_zero < 2 * args[4].size          # both outcomes present
 
 
+# a grid of 3 x 3 cells of KB slots with the rigid tick's six row classes
+# (same cell, E, SW, S, SE, big), their row counts, and NBIG big bodies
+KB, NBIG = 6, 3
+LAYOUT = ((6, 0, 0, False), (3, 1, 0, False), (2, -1, 1, False),
+          (3, 0, 1, False), (2, 1, 1, False), (3, 0, 0, True))
+
+
+def _random_grid(device, nbx=3, seed=4):
+    """narrowphase_grid's arguments: random polygons in the slots of nbx x
+    nbx cells and NBIG big ones, random slots for every row."""
+    NC, R = nbx * nbx, sum(c[0] for c in LAYOUT)
+    body = _random_polys(NC * KB + NBIG, V, seed, spread=0.3)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    g = [t(body[k][:NC * KB].reshape((NC, KB) + body[k].shape[1:]))
+         for k in ("pos", "angle", "verts", "nverts")]
+    b = [t(body[k][NC * KB:]) for k in ("pos", "angle", "verts", "nverts")]
+    rng = np.random.default_rng(seed)
+    ka = rng.integers(0, KB, (NC, R)).astype(np.int32)
+    kb = np.concatenate([rng.integers(0, NBIG if big else KB, (NC, rows))
+                         for rows, _, _, big in LAYOUT], 1).astype(np.int32)
+    return (*g, *b, t(ka), t(kb)), dict(nbx=nbx, layout=LAYOUT)
+
+
+def test_grid_passes_fit_shared_memory():
+    """The staging passes of csrc/narrowphase_grid.cu: RIGID_STACKS 10k
+    (KB = 48, V = 7, four big walls) stages all five regions at once; cells
+    too large for that take several passes, each within a block's shared
+    memory; a cell that cannot fit with one partner is refused."""
+    stacks = ((48, 0, 0, False), (24, 1, 0, False), (16, -1, 1, False),
+              (24, 0, 1, False), (16, 1, 1, False), (16, 0, 0, True))
+    assert RK.grid_passes(48, 4, 7, stacks) == ([6], 5 * 48 + 4)
+    ends, nsb = RK.grid_passes(256, 64, 16, stacks)
+    assert ends[-1] == 6 and len(ends) > 1
+    assert nsb * (16 * 16 + 24) <= RK.SMEM_MAX
+    assert ends == sorted(set(ends))
+    with pytest.raises(ValueError, match="shared memory"):
+        RK.grid_passes(500, 4, 16, stacks)
+
+
+def test_cpu_grid_narrowphase_takes_its_plain_version():
+    """On CPU tensors narrowphase_grid runs its plain version: the rows of
+    grid_rows through narrowphase_plain, and their side positions."""
+    args, kw = _random_grid("cpu")
+    RK.reset_counters()
+    got = RK.narrowphase_grid(*args, **kw)
+    assert RK.narrowphase_grid.plain_calls == 1
+    assert RK.narrowphase_grid.launches == 0
+    a, b = RK.grid_rows(*args, **kw)
+    want = (*RK.narrowphase_plain(*a, *b), a[0], b[0])
+    for u, v in zip(got, want):
+        assert torch.equal(u, v)
+    assert got[0].any() and (~got[0]).any()
+
+
 @pytest.mark.cuda
-def test_cuda_narrowphase_matches_plain():
-    """The CUDA kernel against its plain version on the same rows, on the
-    card: hit and contact masks equal, the rest within the tolerances of
-    test_pallas_rigid.py (both round alike, so the error is ~0)."""
+@pytest.mark.parametrize("form", ["rows", "grid", "grid_in_passes"])
+def test_cuda_narrowphase_matches_plain(form, monkeypatch):
+    """The CUDA kernels against their plain versions on the same rows, on
+    the card: hit and contact masks equal, the rest within the tolerances
+    of test_pallas_rigid.py (both round alike, so the error is ~0). The
+    row form on random rows; the grid form on a random grid, staging
+    every class at once and, with the shared memory a block may have cut
+    down, in several passes; its side positions equal the plain
+    version's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    if form != "rows":
+        if form == "grid_in_passes":    # own cell + one partner a pass
+            monkeypatch.setattr(RK, "SMEM_MAX", 2 * KB * (16 * V + 24))
+            assert len(RK.grid_passes(KB, NBIG, V, LAYOUT)[0]) > 2
+        args, kw = _random_grid("cuda")
+        RK.reset_counters()
+        got = RK.narrowphase_grid(*args, **kw)
+        torch.cuda.synchronize()
+        assert RK.narrowphase_grid.launches == 1
+        ref = RK.narrowphase_grid_plain(*args, **kw)
+        got = tuple(x.cpu().numpy() for x in got)
+        ref = tuple(x.cpu().numpy() for x in ref)
+        _assert_like_pallas_test(got[:6], ref[:6])
+        np.testing.assert_array_equal(got[5], ref[5])
+        np.testing.assert_array_equal(got[6:], ref[6:])
+        return
     for spread in (0.3, 1.5):
         sa = _random_polys(N, V, seed=1, spread=spread)
         sb = _random_polys(N, V, seed=2, spread=spread)
