@@ -74,8 +74,34 @@ Phases (any failure raises and exits non-zero, printing no result):
      grid under RIGID_MAX_DROP rather than at zero;
   8. at the rows of that run's state 40 ticks in (82,944 a tick), hold the
      narrowphase kernel against its plain version and time both;
-  9. print the bitwise twin checks as a JSON line, the kernels' JSON line,
-     then the result line.
+  10. the coupled dam (build_coupled_dam(100000, 300), the rigid list
+     pipeline with 300 dynamic pentagons) through build_run_fn, in the
+     default and the split configuration: 60 ticks to settle, then 3
+     blocks of 10 timed (host clock around synchronized blocks), every
+     kernel counter set to 0 just before them and read just after: the
+     path's kernels 10 times a tick, no other and no plain version. The
+     fluid cells that couple with a dynamic rigid (not a wall) at the
+     settled state are counted (0 fails), and there coupling9 and
+     coupling are held against their plain versions and timed on the
+     scene's own candidates, which move;
+  11. the highlight reel (20k particles, 60 circles and polygons with
+     sleep, 200 gas drifters): 60 ticks counted and timed the same way,
+     finite;
+  12. the north star (build_north_star(100000, 10000), the grid rigid
+     pipeline): up to 120 ticks, fewer if the next block would pass 60 s
+     (the count is printed), the stacked chain 10 times a tick and
+     narrowphase_grid once a tick; coupling9 and coupling held and timed
+     on its last state;
+  13. one coupled-dam block under torch.cuda.set_sync_debug_mode("error"):
+     the list rigid step makes no host read;
+  14. two 10-tick coupled-dam blocks from one state equal to the bit in
+     every state field;
+  15. RANDOM_POLYGONS, FLUID_AND_POLYGONS, GALTON_BOARD and HOURGLASSES
+     (create_scenario, the list pipeline), 60 ticks each, counted, timed,
+     finite;
+  16. print the bitwise twin checks as a JSON line, the K = 64 kernels,
+     the launches of each new path, the couplings on moving rigids, the
+     kernels' JSON line, then the result line.
 Every kernel's line carries its bound: the larger of the bytes it must
 move on these inputs (slot_bytes, coupling9_bytes, coupling_bytes: what
 an empty slot or a cell that does not couple holds is counted only where
@@ -94,6 +120,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DAM_N = 100_000
 RIGID_N = 10_000
+COUPLED = (100_000, 300)           # build_coupled_dam: fluid, pentagons
+HIGHLIGHT = (20_000, 60, 200)      # build_highlight_reel: fluid, rigids, gas
+NORTH = (100_000, 10_000)          # build_north_star: fluid, polygons
+SETTLE = 60           # ticks before the coupled dam is timed (bench.py:324)
+NORTH_SETTLE = 120    # the north star's, cut to fit NORTH_BUDGET_S
+NORTH_BUDGET_S = 60.0
+LIST_SCENES = ("RANDOM_POLYGONS", "FLUID_AND_POLYGONS", "GALTON_BOARD",
+               "HOURGLASSES")
+LIST_TICKS = 60
 BLOCK = 10
 WARM_BLOCKS = 4      # dam blocks run before the kernel check (phase 3)
 SUBSTEPS = 10        # FluidConfig.num_sub_steps of the fluid scenes
@@ -362,6 +397,48 @@ def sub_step_inputs(SK, fl, state, ST):
                "wall": (live, *moved_wall(SK, M9, fld, big, ck["V"]))})
 
 
+def couple_views(name, out):
+    """A coupling kernel's outputs as (state planes, accelerations, PL,
+    bigp): coupling9's come stacked in ST, coupling's as planes."""
+    import torch
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    acc = [SK.ST_AX, SK.ST_AY]
+    rest = [f for f in range(9) if f not in acc]
+    if name == "coupling9":
+        return out[0][:, rest], out[0][:, acc], out[1], out[2]
+    return torch.stack(out[:4]), torch.stack(out[4:6]), out[6], out[7]
+
+
+def couple_check(name, label, op, a, ck, slots):
+    """A coupling kernel's outputs on arguments ``a``, whose cells hold up
+    to ``slots`` live particles, against its plain version's: (outputs,
+    max abs error, nonzero partials)."""
+    out = op(*a, cn=ck)
+    st_k, a_k, pl_k, big_k = couple_views(name, out)
+    st_p, a_p, pl_p, big_p = couple_views(name, op.plain(*a, cn=ck))
+    st_err = max_err(st_k, st_p)
+    a_err = max_err(a_k, a_p)
+    a_scale = float(a_p.abs().max())
+    # partials: per (row, slot, column) and per (row, block) sums,
+    # elementwise, to 1e-5 plus 1e-6 of the largest for each 16 live slots
+    # a cell may hold (float32 ulps of a block's sum over up to 32 x slots
+    # particles, which the plain version adds with index_add_ in an order
+    # that varies by run on the card)
+    pl_err = max_err(pl_k, pl_p)
+    big_err = max_err(big_k, big_p)
+    part_scale = max(float(pl_p.abs().max()),
+                     float(big_p.abs().max()) if big_p.numel() else 0.0)
+    contact = int((big_p.abs() > 0).sum() + (pl_p.abs() > 0).sum())
+    print(f"{name} ({label}): cells coupled {int((a[0] > 0).sum())}, "
+          f"nonzero partials {contact}, state err {st_err:.3e}, accel "
+          f"err {a_err:.3e} of {a_scale:.4g}, partials err "
+          f"{max(big_err, pl_err):.3e} of {part_scale:.4g}", flush=True)
+    if st_err > 1e-5 or a_err > max(1e-5, 1e-6 * a_scale) or \
+            max(big_err, pl_err) > 1e-5 + 1e-6 * slots / 16 * part_scale:
+        fail(f"{name} ({label}) differs from its plain version")
+    return out, max(st_err, big_err, pl_err), contact
+
+
 def check_kernels(dev):
     """Phase 3: each kernel against its plain version at dam-100k shapes."""
     import torch
@@ -460,43 +537,9 @@ def check_kernels(dev):
     # the couplings on both candidate sets: coupling9 takes M9 and the
     # sweep's results, coupling the same sub-step as planes (D10)
     m, pid, occf = M9[:, SK.M9_M], M9[:, SK.M9_ID], M9[:, SK.M9_OCC]
-    acc = [SK.ST_AX, SK.ST_AY]
-    rest = [f for f in range(9) if f not in acc]
-    views = {   # an op's outputs as (state planes, accelerations, PL, bigp)
-        "coupling9": lambda out: (out[0][:, rest], out[0][:, acc], out[1],
-                                  out[2]),
-        "coupling": lambda out: (torch.stack(out[:4]), torch.stack(out[4:6]),
-                                 out[6], out[7]),
-    }
 
     def check_couple(name, label, op, a, slots=K):
-        """A coupling kernel's outputs on arguments ``a``, whose cells hold
-        up to ``slots`` live particles, against its plain version's:
-        (outputs, max abs error, nonzero partials)."""
-        out = op(*a, cn=ck)
-        st_k, a_k, pl_k, big_k = views[name](out)
-        st_p, a_p, pl_p, big_p = views[name](op.plain(*a, cn=ck))
-        st_err = max_err(st_k, st_p)
-        a_err = max_err(a_k, a_p)
-        a_scale = float(a_p.abs().max())
-        # partials: per (row, slot, column) and per (row, block) sums,
-        # elementwise, to 1e-5 plus 1e-6 of the largest for each 16 live
-        # slots a cell may hold (float32 ulps of a block's sum over up to
-        # 32 x slots particles, which the plain version adds with
-        # index_add_ in an order that varies by run on the card)
-        pl_err = max_err(pl_k, pl_p)
-        big_err = max_err(big_k, big_p)
-        part_scale = max(float(pl_p.abs().max()),
-                         float(big_p.abs().max()) if big_p.numel() else 0.0)
-        contact = int((big_p.abs() > 0).sum() + (pl_p.abs() > 0).sum())
-        print(f"{name} ({label}): cells coupled {int((a[0] > 0).sum())}, "
-              f"nonzero partials {contact}, state err {st_err:.3e}, accel "
-              f"err {a_err:.3e} of {a_scale:.4g}, partials err "
-              f"{max(big_err, pl_err):.3e} of {part_scale:.4g}", flush=True)
-        if st_err > 1e-5 or a_err > max(1e-5, 1e-6 * a_scale) or \
-                max(big_err, pl_err) > 1e-5 + 1e-6 * slots / 16 * part_scale:
-            fail(f"{name} ({label}) differs from its plain version")
-        return out, max(st_err, big_err, pl_err), contact
+        return couple_check(name, label, op, a, ck, slots)
 
     outs = {}
     for name, op, tail in (("coupling9", SK.coupling9, (M9, *sw)),
@@ -1423,6 +1466,233 @@ def check_narrowphase(state, run):
     return out
 
 
+def couple_ops(cpl, fld, big, occ, V):
+    """Operations of the candidate math on these inputs: each live
+    particle of a cell that couples (cpl > 0) against its cell's live
+    candidates (fld) and the live big solids (big)."""
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    per_cell = (fld[:, :, SK.RW_M, :] > 0).sum(1) + \
+        int((big[:, SK.RW_M] > 0).sum())                  # [rows, cols]
+    live = (occ & (cpl > 0)[:, None, :]).sum(1)
+    return float((live * per_cell).sum()) * (CPL_OPS_PER_VERT * V + CPL_OPS)
+
+
+def path_kernels(run, cfg):
+    """The SPH kernels a block of ``run`` (built with ``cfg``) launches each
+    sub-step: the stacked chain for a resident fluid, the split kernels
+    with pair_backend "pallas" (the coupling kernel only with rigid rows);
+    the pair sweep, or density and force, for the scatter step; none
+    without a fluid."""
+    fl = run.systems.get("fluid")
+    if fl is None:
+        return ()
+    split = cfg.fluid.pair_backend == "pallas"
+    if not hasattr(fl, "grid_build"):
+        return ("density", "force") if split else ("pair_sweep",)
+    cpl = (("coupling",) if split else ("coupling9",)) \
+        if hasattr(fl, "coupling_inputs") else ()
+    return ("migrate",) + (("density", "force") if split else
+                           ("pair_sweep",)) + cpl
+
+
+def drive(dev, card, sc, label, cfg=None, settle=0, blocks=3):
+    """``sc`` through build_run_fn(ticks=BLOCK): ``settle`` ticks, then
+    ``blocks`` blocks timed on the host clock around synchronized blocks.
+    Every kernel counter is set to 0 just before the timed blocks and
+    read just after: the kernels of the path (path_kernels, and
+    narrowphase_grid once a tick on the grid rigid pipeline) must have
+    launched, no other kernel and no plain version; the bodies must stay
+    finite. Returns (run, the settled state, the final state, launches,
+    ticks/s)."""
+    import torch
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    from lpe_tpu_torch.systems import build_run_fn
+    cfg = cfg or sc.cfg
+    run = build_run_fn(sc.spec, cfg, ticks=BLOCK, device=dev)
+    state = sc.state
+    for _ in range(settle // BLOCK):
+        state = run(state)
+    torch.cuda.synchronize()
+    settled = state
+    ops = (*SK.OPS, *RK.OPS)
+    SK.reset_counters()
+    RK.reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(blocks):
+        state = run(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ticks = blocks * BLOCK
+    launches = {op.name: op.launches for op in ops if op.launches}
+    want = dict.fromkeys(path_kernels(run, cfg), ticks * SUBSTEPS)
+    if hasattr(run.systems.get("rigid"), "narrowphase_args"):
+        want["narrowphase_grid"] = ticks
+    if launches != want or any(op.plain_calls for op in ops):
+        fail(f"{label}: launches {launches}, expected {want}; plain calls "
+             f"{ {op.name: op.plain_calls for op in ops if op.plain_calls} }")
+    for f in ("pos", "vel", "angle", "omega"):
+        if not bool(torch.isfinite(getattr(state.bodies, f)).all()):
+            fail(f"{label}: non-finite {f}")
+    tps = ticks / dt
+    print(f"{label}: {tps:.2f} ticks/s over {blocks} blocks of {BLOCK} "
+          f"(host clock, synchronized) on {card}, after {settle} ticks; "
+          f"launches {launches}", flush=True)
+    return run, settled, state, launches, tps
+
+
+def check_coupled_kernels(run, state, label):
+    """coupling9 and coupling on the sub-step from ``state`` with the
+    scene's own candidates (moving rigids couple), against their plain
+    versions at the smoke's tolerances (couple_check), timed flushed
+    (cuda_ms) and bounded. Returns {name: (max abs err, (ms, plain ms),
+    (bound ms, bound by))}."""
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    fl = run.systems["fluid"]
+    ST = fl.grid_stack(fl.grid_build(state))
+    inp = sub_step_inputs(SK, fl, state, ST)
+    cand = inp["cands"]["main"]
+    ck = fl.couple_consts
+    M9 = inp["M9"]
+    occ = M9[:, SK.M9_OCC] > 0
+    out = {}
+    for name, op, tail, nbytes_of in (
+            ("coupling9", SK.coupling9, (M9, *inp["sw"]),
+             lambda o: coupling9_bytes(*cand, M9, o)),
+            ("coupling", SK.coupling, (inp["D10"],),
+             lambda o: coupling_bytes(*cand, inp["D10"], o))):
+        args = (*cand, *tail)
+        res, err, contact = couple_check(name, label, op, args, ck,
+                                         ST.shape[2])
+        if contact == 0:
+            fail(f"{name} ({label}): no particle coupled")
+        times = (cuda_ms(lambda: op(*args, cn=ck)),
+                 cuda_ms(lambda: op.plain(*args, cn=ck), 5))
+        bnd = bound(nbytes_of(res), couple_ops(*cand, occ, ck["V"]))
+        out[name] = (err, times, bnd)
+        print(f"kernel {name} ({label}): max_abs_err {err:.3e}  kernel "
+              f"{times[0]:.4f} ms  plain {times[1]:.4f} ms  bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    return out
+
+
+def run_coupled(dev, card):
+    """Phases 10, 13 and 14: the coupled dam (100k particles + 300
+    pentagons) in the default and the split configuration: 60 ticks to
+    settle, then counted, timed blocks (drive); the fluid cells that couple
+    with a dynamic rigid at the settled state (none: fail); the coupling
+    kernels held and timed there. Then, in the default configuration, one
+    block under set_sync_debug_mode("error") and two blocks from one state
+    equal to the bit in every state field. Returns (launches by path,
+    kernel results by name)."""
+    import torch
+    from lpe_tpu_torch.scenarios.bench_scenes import build_coupled_dam
+    sc = build_coupled_dam(*COUPLED, device=dev)
+    print(f"coupled dam {COUPLED}: {sc.spec.n_solid} solids "
+          f"({len(sc.spec.solid_big_idx)} big), {sc.spec.n_liquid} liquid",
+          flush=True)
+    paths, kern = {}, {}
+    for label, kw in (("default", {}), ("split", dict(pair_backend="pallas"))):
+        name = f"coupled dam {label}"
+        run, settled, state, paths[f"coupled_{label}"], _ = drive(
+            dev, card, sc, name, fluid_cfg(sc.cfg, **kw), settle=SETTLE)
+        cells, dyn = run.systems["fluid"].coupled_cells(settled)
+        print(f"{name}: after {SETTLE} ticks {cells} fluid cells couple, "
+              f"{dyn} of them with a dynamic rigid (not a wall); rigid list "
+              f"pipeline host reads {run.systems['rigid'].guard_reads}",
+              flush=True)
+        if dyn == 0:
+            fail(f"{name}: no fluid cell couples with a dynamic rigid")
+        if run.systems["rigid"].guard_reads:
+            fail(f"{name}: the rigid step read back from the card")
+        if label == "default":
+            kern = check_coupled_kernels(run, settled, "coupled dam")
+            drun, dstate = run, settled
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    drun(dstate)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("coupled dam block under set_sync_debug_mode('error'): no host "
+          "sync", flush=True)
+    a, b = drun(dstate), drun(dstate)
+    differ = [n for part in ("", "bodies")
+              for n, u, v in state_fields(a, b, part)
+              if not tensor_bits_equal(u, v)]
+    print(f"coupled dam: two 10-tick blocks from one state bitwise equal in "
+          f"every state field {not differ}", flush=True)
+    if differ:
+        fail(f"coupled dam: two blocks from one state differ in {differ}")
+    return paths, kern
+
+
+def run_north(dev, card):
+    """Phase 12: the north star (100k particles + 10k polygons, the grid
+    rigid pipeline) through build_run_fn: up to NORTH_SETTLE ticks, fewer
+    when the next block would pass NORTH_BUDGET_S; counters set to 0
+    before and read after: the stacked chain 10 times a tick, the grid
+    narrowphase once a tick; coupling9 held and timed on the last state's
+    sub-step. Returns (launches, kernel results)."""
+    import torch
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    from lpe_tpu_torch.scenarios.bench_scenes import build_north_star
+    from lpe_tpu_torch.systems import build_run_fn
+    sc = build_north_star(*NORTH, device=dev)
+    run = build_run_fn(sc.spec, sc.cfg, ticks=BLOCK, device=dev)
+    step = run.systems["rigid"]
+    if not hasattr(step, "narrowphase_args"):
+        fail("north star: not on the grid rigid pipeline")
+    ops = (*SK.OPS, *RK.OPS)
+    SK.reset_counters()
+    RK.reset_counters()
+    state, ticks, t0 = sc.state, 0, time.perf_counter()
+    while ticks < NORTH_SETTLE:
+        tb = time.perf_counter()
+        state = run(state)
+        torch.cuda.synchronize()
+        ticks += BLOCK
+        now = time.perf_counter()
+        if now - t0 + (now - tb) > NORTH_BUDGET_S:
+            break
+    dt = time.perf_counter() - t0
+    launches = {op.name: op.launches for op in ops if op.launches}
+    want = dict.fromkeys(("migrate", "pair_sweep", "coupling9"),
+                         ticks * SUBSTEPS)
+    want["narrowphase_grid"] = ticks
+    if launches != want or any(op.plain_calls for op in ops):
+        fail(f"north star: launches {launches}, expected {want}; plain "
+             f"calls { {op.name: op.plain_calls for op in ops} }")
+    for f in ("pos", "vel", "angle", "omega"):
+        if not bool(torch.isfinite(getattr(state.bodies, f)).all()):
+            fail(f"north star: non-finite {f}")
+    cells, dyn = run.systems["fluid"].coupled_cells(state)
+    print(f"north star {NORTH}: {ticks} ticks of {NORTH_SETTLE} (budget "
+          f"{NORTH_BUDGET_S:.0f} s) at {ticks / dt:.2f} ticks/s (host "
+          f"clock, synchronized blocks, the first block's build included) "
+          f"on {card}; launches {launches}; guard host reads "
+          f"{step.guard_reads / ticks:.2f} a tick; {cells} fluid cells "
+          f"couple, {dyn} with a dynamic rigid", flush=True)
+    return launches, check_coupled_kernels(run, state, "north star")
+
+
+def run_scenes(dev, card):
+    """Phases 11 and 15: the highlight reel (circles and polygons, sleep,
+    gas) and the four catalog scenes of the list pipeline, 60 ticks each
+    through drive. Returns launches by scene."""
+    from lpe_tpu_torch.scenarios import create_scenario
+    from lpe_tpu_torch.scenarios.bench_scenes import build_highlight_reel
+    paths = {}
+    sc = build_highlight_reel(*HIGHLIGHT, device=dev)
+    paths["highlight"] = drive(dev, card, sc, f"highlight reel {HIGHLIGHT}",
+                               blocks=LIST_TICKS // BLOCK)[3]
+    for name in LIST_SCENES:
+        sc = create_scenario(name, seed=0, device=dev)
+        paths[name] = drive(dev, card, sc, name,
+                            blocks=LIST_TICKS // BLOCK)[3]
+    return paths
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1507,7 +1777,12 @@ def main(argv=None) -> int:
     for name, (e, t, bnd) in check_narrowphase(rstate, rrun).items():
         errs[name], times[name], bounds[name] = e, t, bnd
 
-    # 9. results: no single PyTorch call computes any of these kernels
+    # 10.-15. the scenes of the rigid list pipeline, and the north star
+    paths, coupled = run_coupled(dev, card)
+    paths.update(run_scenes(dev, card))
+    paths["north"], north = run_north(dev, card)
+
+    # 16. results: no single PyTorch call computes any of these kernels
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], max_abs_err=errs[name],
                     ms=times[name][0], plain_ms=times[name][1],
@@ -1516,6 +1791,13 @@ def main(argv=None) -> int:
                for name, (src, rep) in KERNEL_INFO.items()]
     print(json.dumps({"bitwise_twins": twins}), flush=True)
     print(json.dumps({"kernels_at_k64_folded": k64}), flush=True)
+    print(json.dumps({"path_launches": paths}), flush=True)
+    print(json.dumps({"couplings_on_moving_rigids": {
+        scene: {name: dict(max_abs_err=e, ms=t[0], plain_ms=t[1],
+                           bound_ms=b[0], bound_by=b[1])
+                for name, (e, t, b) in res.items()}
+        for scene, res in (("coupled_dam", coupled),
+                           ("north_star", north))}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,7 @@ from ..convert import state_to_numpy
 
 def _solid_aabbs(b, S, VS):
     """World AABBs of the first S bodies (numpy mirror of
-    grid_pipeline._aabbs_bodies)."""
+    pipeline._aabbs)."""
     pos = np.asarray(b.pos[:S], np.float64)
     ang = np.asarray(b.angle[:S], np.float64)
     verts = np.asarray(b.verts[:S, :VS], np.float64)

@@ -1,7 +1,7 @@
 """Host-side polygon construction helpers (NumPy), copied from
-``lpe_tpu/math/polygon.py``: the regular-polygon builder, the random
-convex polygon and the polygon inertia formula that scene builders use for
-rigid entities.
+``lpe_tpu/math/polygon.py``: the regular, random convex and random
+polygon builders, the polygon inertia formula and the bounding radius
+that scene builders use for rigid entities.
 """
 from __future__ import annotations
 
@@ -32,6 +32,20 @@ def build_random_convex_polygon(rng: np.random.Generator,
     return np.stack([r * np.cos(ang), -r * np.sin(ang)], axis=-1)
 
 
+def build_random_polygon(rng: np.random.Generator,
+                         size: float) -> np.ndarray:
+    """Random polygon from sorted random points, 5-10 sides.
+
+    reference: include/math/polygon.hpp:212-255.
+    """
+    n = int(rng.integers(5, 11))
+    pts = rng.uniform(-size, size, (n, 2))
+    centroid = pts.mean(axis=0)
+    order = np.argsort(np.arctan2(-(pts[:, 1] - centroid[1]),
+                                  pts[:, 0] - centroid[0]))
+    return pts[order]
+
+
 def calculate_polygon_inertia(vertices: np.ndarray, mass: float) -> float:
     """Moment of inertia of a uniform-density polygon about its local origin.
 
@@ -44,3 +58,7 @@ def calculate_polygon_inertia(vertices: np.ndarray, mass: float) -> float:
     num = float((cross * dots).sum())
     den = float(cross.sum())
     return (mass * num) / (6.0 * den)
+
+
+def polygon_bounding_radius(vertices: np.ndarray) -> float:
+    return float(np.sqrt((np.asarray(vertices) ** 2).sum(-1).max()))

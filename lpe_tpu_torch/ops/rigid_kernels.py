@@ -94,21 +94,18 @@ def _row_outputs(N, dev):
 # the grid form: rows named by slot in per-cell body grids
 # ---------------------------------------------------------------------------
 
-def grid_rows(g_pos, g_ang, g_verts, g_nverts, big_pos, big_ang, big_verts,
-              big_nverts, ka, kb, *, nbx, layout):
-    """The two shapes of each candidate row, gathered from the body grids
-    by slot: ((pos, angle, verts, nverts) of side A, the same of side B),
-    each [NC * R, ...], the rows of cell c at c * R .. c * R + R - 1.
-
-    The grids are the bodies in their cells' slots: g_pos [NC, KB, 2],
-    g_ang [NC, KB], g_verts [NC, KB, V, 2] (local), g_nverts [NC, KB]
-    int32, NC = nbx * nbx cells in row-major (y, x) order; big_* the same
-    of the NBIG big bodies, [NBIG, ...]. ka, kb [NC, R] int32: a row's slot
-    on side A (its own cell) and on side B. ``layout`` gives the row
-    classes in row order as (rows, dx, dy, big): side B of a row of class
-    (dx, dy) lies in cell ((cy + dy) mod nbx, (cx + dx) mod nbx), of a big
-    class (``big`` true) in the big bodies, at index kb."""
-    NC, KB = g_ang.shape
+def grid_gather(grids, bigs, ka, kb, *, nbx, layout):
+    """Fields of each candidate row's two bodies, gathered from the body
+    grids by slot: (the fields of side A, the same of side B), each
+    [NC * R, ...], the rows of cell c at c * R .. c * R + R - 1. ``grids``
+    are fields [NC, KB, ...] of the bodies in their cells' slots, NC =
+    nbx * nbx cells in row-major (y, x) order; ``bigs`` the same fields
+    [NBIG, ...] of the big bodies. ka, kb [NC, R] int32: a row's slot on
+    side A (its own cell) and on side B. ``layout`` gives the row classes
+    in row order as (rows, dx, dy, big): side B of a row of class (dx, dy)
+    lies in cell ((cy + dy) mod nbx, (cx + dx) mod nbx), of a big class
+    (``big`` true) in the big bodies, at index kb."""
+    NC, KB = grids[0].shape[:2]
     dev = ka.device
     cell = torch.arange(NC, device=dev)
     cy, cx = cell // nbx, cell % nbx
@@ -120,12 +117,23 @@ def grid_rows(g_pos, g_ang, g_verts, g_nverts, big_pos, big_ang, big_verts,
     ia = (cell[:, None] * KB + ka.long()).reshape(-1)
     ib = (torch.cat(base, dim=1) + kb.long()).reshape(-1)
     side_a, side_b = [], []
-    for g, bg in ((g_pos, big_pos), (g_ang, big_ang), (g_verts, big_verts),
-                  (g_nverts, big_nverts)):
+    for g, bg in zip(grids, bigs):
         flat = g.reshape((NC * KB,) + g.shape[2:])
         side_a.append(flat[ia])
         side_b.append(torch.cat([flat, bg])[ib])
     return tuple(side_a), tuple(side_b)
+
+
+def grid_rows(g_pos, g_ang, g_verts, g_nverts, big_pos, big_ang, big_verts,
+              big_nverts, ka, kb, *, nbx, layout):
+    """The two shapes of each candidate row, gathered from the body grids
+    by slot (``grid_gather``): ((pos, angle, verts, nverts) of side A, the
+    same of side B). g_pos [NC, KB, 2], g_ang [NC, KB], g_verts [NC, KB,
+    V, 2] (local), g_nverts [NC, KB] int32; big_* the same of the NBIG big
+    bodies."""
+    return grid_gather((g_pos, g_ang, g_verts, g_nverts),
+                       (big_pos, big_ang, big_verts, big_nverts), ka, kb,
+                       nbx=nbx, layout=layout)
 
 
 def narrowphase_grid_plain(g_pos, g_ang, g_verts, g_nverts, big_pos,

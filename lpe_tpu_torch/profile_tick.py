@@ -2,12 +2,15 @@
 
     python3 -m lpe_tpu_torch.profile_tick [SCENE ...]
 
-SCENE is any of dam, dam_split, dam_scatter, simple_fluid, rigid (all by
-default).
+SCENE is any of dam, dam_split, dam_scatter, simple_fluid, rigid, coupled,
+highlight, north (all by default).
 
 A block is 10 ticks: one ``build_run_fn(ticks=10)`` call for DAM_BREAK
-100k (the grid stays resident across the block) and for RIGID_STACKS 10k
-(the bench's rigid config), ten ``build_tick_fn`` calls for SIMPLE_FLUID.
+100k (the grid stays resident across the block), RIGID_STACKS 10k (the
+bench's rigid config), the coupled dam (100k particles + 300 pentagons),
+the highlight reel (20k particles, 60 circles and polygons, 200 gas
+drifters) and the north star (100k particles + 10k polygons); ten
+``build_tick_fn`` calls for SIMPLE_FLUID.
 DAM_BREAK 100k runs three times: in its default configuration (resident,
 the stacked kernel chain), with ``pair_backend="pallas"`` (resident, the
 split density, force and coupling kernels) and with ``residency="off"``,
@@ -26,7 +29,14 @@ split density, force and coupling kernels) and with ``residency="off"``,
   the profiler does not tie a kernel launched through ctypes to a range,
   so the narrowphase kernels' time comes from their names), the rows
   without the rebuild plus the narrowphase, and the solvers (the rest),
-  with the guard's rebuilds per tick.
+  with the guard's rebuilds per tick; the north star's the same;
+- for every scene, the device time per tick of each system's range
+  (the PyTorch ops it runs; the port's kernels fall in no range);
+- for the coupled dam and the highlight reel (the rigid list pipeline),
+  the device time per tick and the kernel launches per tick of its
+  ranges: the whole system, ``rigid.broadphase``, ``rigid.narrowphase``
+  (GJK, EPA, manifolds), ``rigid.compact`` (active-row compaction and
+  warm start), ``rigid.velocity`` and ``rigid.position``.
 
 The card's name and power limit come first, as ``nvidia-smi`` gives them.
 """
@@ -53,11 +63,21 @@ DAM_FLUID = {   # scene name -> FluidConfig fields of that dam configuration
     "dam_scatter": dict(residency="off", pair_backend="pallas"),
 }
 RIGID_RANGES = ("rigid", "rigid.rows", "rigid.rebuild", "rigid.narrowphase")
+LIST_RANGES = ("rigid", "rigid.broadphase", "rigid.narrowphase",
+               "rigid.compact", "rigid.velocity", "rigid.position")
+BENCH_SCENES = {   # scene name -> (bench_scenes builder, its arguments)
+    "coupled": ("build_coupled_dam", (DAM_N, 300)),
+    "highlight": ("build_highlight_reel", (20_000, 60, 200)),
+    "north": ("build_north_star", (DAM_N, RIGID_N)),
+}
 LABELS = {"dam": f"DAM_BREAK {DAM_N}",
           "dam_split": f"DAM_BREAK {DAM_N} split kernels",
           "dam_scatter": f"DAM_BREAK {DAM_N} scatter + split pair",
           "simple_fluid": "SIMPLE_FLUID",
-          "rigid": f"RIGID_STACKS {RIGID_N}"}
+          "rigid": f"RIGID_STACKS {RIGID_N}",
+          "coupled": f"COUPLED_DAM {DAM_N} + 300",
+          "highlight": "HIGHLIGHT 20000 + 60 + 200 gas",
+          "north": f"NORTH_STAR {DAM_N} + {RIGID_N}"}
 
 
 def _scene(name, device):
@@ -72,6 +92,11 @@ def _scene(name, device):
         return sc, build_run_fn(sc.spec, cfg, ticks=BLOCK, device=device)
     if name == "rigid":
         sc = build_rigid_stacks(RIGID_N, device=device)
+        return sc, build_run_fn(sc.spec, sc.cfg, ticks=BLOCK, device=device)
+    if name in BENCH_SCENES:
+        from .scenarios import bench_scenes
+        fn, args = BENCH_SCENES[name]
+        sc = getattr(bench_scenes, fn)(*args, device=device)
         return sc, build_run_fn(sc.spec, sc.cfg, ticks=BLOCK, device=device)
     sc = create_scenario(SimulationType.SIMPLE_FLUID, seed=0, device=device)
     tick = build_tick_fn(sc.spec, sc.cfg, device=device)
@@ -104,15 +129,34 @@ def _kernel_times(prof, ranges):
     return out, n
 
 
-def _range_times(prof):
-    """Device microseconds of the kernels launched under each of the rigid
-    system's ranges (host-side range events only)."""
+def _range_times(prof, ranges=RIGID_RANGES):
+    """Device microseconds of the kernels launched under each of the
+    ``ranges`` (host-side range events only)."""
     from torch.autograd import DeviceType
-    out = dict.fromkeys(RIGID_RANGES, 0.0)
+    out = dict.fromkeys(ranges, 0.0)
     for e in prof.events():
         if e.device_type == DeviceType.CPU and e.name in out:
             out[e.name] += e.device_time_total
     return out
+
+
+def _range_launches(prof, ranges):
+    """Kernel launches made on the host inside each of the ``ranges``: the
+    CUDA runtime's launch calls that start within one of its spans."""
+    import bisect
+    from torch.autograd import DeviceType
+    spans = {r: [] for r in ranges}
+    starts = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in spans:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+        elif e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            starts.append(e.time_range.start)
+    starts.sort()
+    return {r: sum(bisect.bisect_right(starts, b) - bisect.bisect_left(
+        starts, a) for a, b in sp) for r, sp in spans.items()}
 
 
 def profile_scene(name, device):
@@ -166,7 +210,21 @@ def profile_scene(name, device):
           f"; wall {wall_ms:.4f} ms per tick (mean of the timed runs); "
           f"device busy {100 * total / wall_ms:.1f}% of a tick; "
           f"{n_kernels / BLOCK:.0f} kernel launches a tick", flush=True)
-    if name == "rigid":
+    systems = tuple(getattr(block, "systems", ()))
+    st = _range_times(prof, systems)
+    print(f"{label}: device ms per tick by system (PyTorch ops only: the "
+          "port's kernels, launched through ctypes, fall in no range): "
+          + ", ".join(f"{k} {v / 1e3 / BLOCK:.4f}" for k, v in st.items()),
+          flush=True)
+    if name in ("coupled", "highlight"):       # the rigid list pipeline
+        rt = _range_times(prof, LIST_RANGES)
+        nl = _range_launches(prof, LIST_RANGES)
+        print(f"{label}: rigid list pipeline, device ms [launches] per "
+              "tick: " + ", ".join(
+                  f"{k.removeprefix('rigid.')} {rt[k] / 1e3 / BLOCK:.4f} "
+                  f"[{nl[k] / BLOCK:.0f}]" for k in LIST_RANGES)
+              + f"; guard host reads {rigid.guard_reads}", flush=True)
+    if name in ("rigid", "north"):
         rt = {k: v / 1e3 / BLOCK for k, v in _range_times(prof).items()}
         solver = rt["rigid"] - rt["rigid.rows"] - rt["rigid.narrowphase"]
         npk = per_tick.get("narrowphase_kernel", 0.0) + \
@@ -183,7 +241,7 @@ def profile_scene(name, device):
 
 def main(argv=None):
     import sys
-    names = (*DAM_FLUID, "simple_fluid", "rigid")
+    names = (*DAM_FLUID, "simple_fluid", "rigid", *BENCH_SCENES)
     want = list(sys.argv[1:] if argv is None else argv) or names
     if set(want) - set(names):
         raise SystemExit(f"profile_tick: scenes are {', '.join(names)}")

@@ -813,6 +813,18 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             cpl = _cpl_mask(_tile_bounds_t(M9[:, SK.M9_OCC]), R)
             return cpl, fld, bigtab
 
+        def _coupled_cells(state):
+            """A diagnostic (chip_smoke, tests), not run in a tick: on the
+            first sub-step from ``state``, the cells that couple (cpl > 0)
+            and those of them with a dynamic candidate in their slots (a
+            rigid of finite mass, so never a wall): (cells, dynamic)."""
+            M9 = SK.migrate(_stack(_grid_build(state)), **mig_kw)
+            cpl, fld, _ = _coupling_inputs(state, M9)
+            m = fld[:, :, SK.RW_M, :]
+            dyn = ((m > 0) & (m < 1e29)).any(1)
+            return int((cpl > 0).sum()), int(((cpl > 0) & dyn).sum())
+
         step_resident.coupling_inputs = _coupling_inputs
+        step_resident.coupled_cells = _coupled_cells
         step_resident.couple_consts = _CN
     return step_resident

@@ -1,24 +1,40 @@
-"""Batched collision geometry: the polygon-polygon narrowphase.
+"""Batched collision geometry: support functions, GJK, EPA, SAT and
+contact clipping.
 
-The counterpart of ``lpe_tpu/systems/rigid/geometry.py``, poly-poly only:
-closed-form SAT (``sat_contact(any_circle=False)``) and the reference-face
-/ incident-edge clip (``polygon_contacts``). The JAX functions handle one
-pair and are ``vmap``-ed over rows; here every function takes a batch of
-rows, so the row axis is written out as the leading dimension. A shape is a
-dict of per-row tensors: ``pos`` [N, 2], ``angle`` [N], ``verts`` [N, V, 2]
-(local, CCW), ``nverts`` [N] and ``vmask`` [N, V].
+The counterpart of ``lpe_tpu/systems/rigid/geometry.py``. The JAX
+functions handle one pair and are ``vmap``-ed over rows; here every
+function takes a batch of rows, so the row axis is written out as the
+leading dimension. A shape is a dict of per-row tensors: ``pos`` [N, 2],
+``angle`` [N], ``verts`` [N, V, 2] (local, CCW), ``nverts`` [N] and
+``vmask`` [N, V]; a shape that may be a circle also has ``is_circle``
+[N] and ``radius`` [N] (without them every row is a polygon).
 
-Sums over a vertex ring run in ring order, as ``csrc/narrowphase.cu``
-runs them, so the kernel and this plain version round alike. GJK/EPA and
-the circle branches are ROADMAP.md Queue 1 item 2.
+- ``gjk`` and ``epa`` keep lpe_tpu's fixed iteration counts and masks:
+  ``fori_loop`` becomes a Python loop over fixed-shape tensors, and a row
+  that has finished keeps its values under a mask, as there.
+- A first-match select (``_select_row``, ``_first_row``) gathers the
+  row that lpe_tpu's masked sum picks: the first of equal maxima or
+  minima (``argmax`` and ``argmin`` return the first).
+- Sums over a vertex ring run in ring order, as ``csrc/narrowphase.cu``
+  runs them, so the kernel and this plain version round alike.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ...core.constants import EPSILON
 from ...core.numerics import sqrt
 
+GJK_ITERS_DEFAULT = 32
+EPA_ITERS_DEFAULT = 24
 NEG = -1e30
+CIRCLE_SAMPLES = 8        # a circle clips as an 8-gon (narrowphase.cpp:56-67)
+
+
+def _cross2(a, b):
+    return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
 
 
 def _dot2(a, b):
@@ -44,16 +60,34 @@ def _select_row(rows, mask):
     return torch.where(hit, out, torch.zeros_like(out))
 
 
-def world_verts(shape):
-    """World-space vertex ring of a polygon row (``pos + R(angle) v``), with
-    its validity mask and count (the polygon branch of geometry.py
-    ``world_verts``)."""
+def _poly_world(shape):
     c = torch.cos(shape["angle"])[:, None]
     s = torch.sin(shape["angle"])[:, None]
     v = shape["verts"]
     rot = torch.stack([v[..., 0] * c - v[..., 1] * s,
                        v[..., 0] * s + v[..., 1] * c], dim=-1)
-    return shape["pos"][:, None, :] + rot, shape["vmask"], shape["nverts"]
+    return shape["pos"][:, None, :] + rot
+
+
+def world_verts(shape):
+    """World-space vertex ring of each row (``pos + R(angle) v``), with its
+    validity mask and count; a circle row is sampled as an 8-gon offset by
+    the body angle (geometry.py ``world_verts``, narrowphase.cpp:52-79)."""
+    w_poly = _poly_world(shape)
+    if "is_circle" not in shape:
+        return w_poly, shape["vmask"], shape["nverts"]
+    V = w_poly.shape[1]
+    k = torch.arange(V, device=w_poly.device)
+    ang = k.to(w_poly.dtype) * (2.0 * math.pi / CIRCLE_SAMPLES) \
+        + shape["angle"][:, None]
+    w_circ = shape["pos"][:, None, :] + shape["radius"][:, None, None] * \
+        torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1)
+    cir = shape["is_circle"]
+    verts = torch.where(cir[:, None, None], w_circ, w_poly)
+    mask = torch.where(cir[:, None], (k < CIRCLE_SAMPLES)[None, :],
+                       shape["vmask"])
+    count = torch.where(cir, CIRCLE_SAMPLES, shape["nverts"])
+    return verts, mask, count
 
 
 def _ring_next(w, count):
@@ -98,15 +132,245 @@ def _sat_poly_poly(wa, ma, na, wb, mb, nb):
     return hit, normal, torch.clamp(pmin, min=0.0)
 
 
-def sat_contact(sa, sb, any_circle: bool = False):
-    """(hit [N], normal [N, 2], penetration [N]) of polygon rows; the
-    normal points A -> B. Circles are not ported (``any_circle`` must be
-    False)."""
-    if any_circle:
-        raise NotImplementedError(
-            "circle narrowphase is not ported yet (ROADMAP.md Queue 1 "
-            "item 2)")
-    return _sat_poly_poly(*world_verts(sa), *world_verts(sb))
+def _first_row(rows, i):
+    """``rows[n, i[n]]``: rows [N, M, ...], i [N] int -> [N, ...]."""
+    idx = i.view((-1, 1) + (1,) * (rows.dim() - 2))
+    return rows.gather(1, idx.expand((rows.shape[0], 1) + rows.shape[2:])) \
+        .squeeze(1)
+
+
+def _perp(v):
+    """(v_y, -v_x): rot90-right of the vectors v [..., 2]."""
+    return torch.stack([v[..., 1], -v[..., 0]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# support functions, GJK, EPA
+# ---------------------------------------------------------------------------
+
+def support_shape(shape, d, w=None):
+    """Furthest point of each row's shape in direction ``d`` [N, 2]
+    (include/math/polygon.hpp:55-141): the exact circle for a circle row,
+    the first vertex of greatest projection for a polygon. ``w``: the
+    rows' polygon world vertices, if the caller has them already."""
+    if w is None:
+        w = _poly_world(shape)
+    proj = torch.where(shape["vmask"], _dot2(w, d[:, None, :]),
+                       torch.full((), NEG, dtype=w.dtype, device=w.device))
+    p_poly = _first_row(w, proj.argmax(dim=1))
+    if "is_circle" not in shape:
+        return p_poly
+    dlen = sqrt(_dot2(d, d))
+    dn = d / torch.clamp(dlen, min=1e-9)[:, None]
+    p_circle = shape["pos"] + dn * shape["radius"][:, None]
+    return torch.where(shape["is_circle"][:, None], p_circle, p_poly)
+
+
+def support_minkowski(sa, sb, d, wa=None, wb=None):
+    """A - B support (include/math/polygon.hpp:124-141)."""
+    return support_shape(sa, d, wa) - support_shape(sb, -d, wb)
+
+
+def gjk(sa, sb, iters: int = GJK_ITERS_DEFAULT):
+    """Boolean intersection of each row's pair: (hit [N], simplex [N, 3,
+    2]). lpe_tpu's masked fixed-iteration loop (gjk.cpp:71-133) with the
+    same simplex case analysis (gjk.cpp:9-69); a row that hit or missed
+    keeps its values."""
+    wa, wb = _poly_world(sa), _poly_world(sb)
+    N = wa.shape[0]
+    dev, dt = wa.device, wa.dtype
+    d0 = torch.zeros((N, 2), dtype=dt, device=dev)
+    d0[:, 0] = 1.0
+    s0 = support_minkowski(sa, sb, d0, wa, wb)
+    simplex = torch.zeros((N, 3, 2), dtype=dt, device=dev)
+    simplex[:, 0] = s0
+    count = torch.ones((N,), dtype=torch.int32, device=dev)
+    d = -s0
+    hit = torch.zeros((N,), dtype=torch.bool, device=dev)
+    miss = _dot2(s0, d0) < 0
+    idx = torch.arange(3, device=dev)
+    for _ in range(iters):
+        active = ~hit & ~miss
+        p = support_minkowski(sa, sb, d, wa, wb)
+        new_miss = _dot2(p, d) < 0
+        sx = torch.where((idx[None, :] == count[:, None])[..., None],
+                         p[:, None, :], simplex)
+        # two points [b, a], a the newest
+        a2, b2 = sx[:, 1], sx[:, 0]
+        ab2, ao2 = b2 - a2, -a2
+        perp2 = -_perp(ab2)
+        perp2 = torch.where((_dot2(perp2, ao2) < 0)[:, None], _perp(ab2),
+                            perp2)
+        toward = _dot2(ab2, ao2) > 0
+        d_c2 = torch.where(toward[:, None], perp2, ao2)
+        sx_c2 = torch.where(toward[:, None, None], sx,
+                            torch.stack([a2, sx[:, 1], sx[:, 2]], dim=1))
+        cnt_c2 = torch.where(toward, 2, 1).to(torch.int32)
+        # three points [c, b, a], a the newest
+        a3, b3, c3 = sx[:, 2], sx[:, 1], sx[:, 0]
+        ab, ac, ao = b3 - a3, c3 - a3, -a3
+        ab_p = _perp(ab)
+        ab_p = torch.where((_dot2(ab_p, ac) > 0)[:, None], -ab_p, ab_p)
+        ac_p = _perp(ac)
+        ac_p = torch.where((_dot2(ac_p, ab) > 0)[:, None], -ac_p, ac_p)
+        out_ab = (_dot2(ab, ao) > 0) & (_dot2(ab_p, ao) > 0)
+        out_ac = ~out_ab & (_dot2(ac, ao) > 0) & (_dot2(ac_p, ao) > 0)
+        inside = ~out_ab & ~out_ac
+        # out_ab: drop c -> [b, a]; out_ac: drop b -> [c, a]
+        sx_c3 = torch.where(
+            out_ab[:, None, None], torch.stack([b3, a3, sx[:, 2]], dim=1),
+            torch.where(out_ac[:, None, None],
+                        torch.stack([c3, a3, sx[:, 2]], dim=1), sx))
+        d_c3 = torch.where(out_ab[:, None], ab_p,
+                           torch.where(out_ac[:, None], ac_p, d))
+        cnt_c3 = torch.where(inside, 3, 2).to(torch.int32)
+        is3 = count + 1 == 3
+        upd = active & ~new_miss
+        simplex = torch.where(upd[:, None, None],
+                              torch.where(is3[:, None, None], sx_c3, sx_c2),
+                              simplex)
+        count = torch.where(upd, torch.where(is3, cnt_c3, cnt_c2), count)
+        d = torch.where(upd[:, None], torch.where(is3[:, None], d_c3, d_c2),
+                        d)
+        hit = torch.where(upd, is3 & inside, hit)
+        miss = miss | (active & new_miss)
+    # iteration-cap exhaustion counts as "no collision" (gjk.cpp:98-103)
+    return hit & ~miss, simplex
+
+
+def epa(sa, sb, simplex, iters: int = EPA_ITERS_DEFAULT):
+    """Penetration normal and depth of each row from its touching simplex:
+    (valid [N], normal [N, 2], penetration [N]). lpe_tpu's fixed-capacity
+    polytope with masked insertion after the closest edge, keeping the
+    least support distance seen and its normal (epa.cpp:31-119)."""
+    wa, wb = _poly_world(sa), _poly_world(sb)
+    N = simplex.shape[0]
+    dev, dt = simplex.device, simplex.dtype
+    cap = 3 + iters + 1
+    crossv = _cross2(simplex[:, 1] - simplex[:, 0],
+                     simplex[:, 2] - simplex[:, 0])
+    degenerate = torch.abs(crossv) < 1e-14
+    tri = torch.where((crossv < 0)[:, None, None], simplex.flip(1), simplex)
+    poly = torch.zeros((N, cap, 2), dtype=dt, device=dev)
+    poly[:, :3] = tri
+    count = torch.full((N,), 3, dtype=torch.int32, device=dev)
+    done = degenerate
+    started = torch.zeros((N,), dtype=torch.bool, device=dev)
+    normal = torch.zeros((N, 2), dtype=dt, device=dev)
+    normal[:, 0] = 1.0
+    pen = torch.full((N,), float("inf"), dtype=dt, device=dev)
+    idx = torch.arange(cap, device=dev)[None, :]
+    inf = torch.full((), float("inf"), dtype=dt, device=dev)
+    # the dtype's noise floor (geometry.py: the reference's 1e-9 is
+    # unreachable in float32 on smooth boundaries)
+    eps = max(EPSILON, 32 * float(torch.finfo(dt).eps))
+    for _ in range(iters):
+        active = ~done
+        last = (idx == (count[:, None] - 1))[..., None]
+        nxt = torch.where(last, poly[:, :1], torch.roll(poly, -1, dims=1))
+        n = _unit(_perp(nxt - poly))
+        dist = _dot2(n, poly)
+        n = torch.where((dist < 0)[..., None], -n, n)
+        dist = torch.where(idx < count[:, None], torch.abs(dist), inf)
+        j = dist.argmin(dim=1)
+        closest = _first_row(dist[..., None], j).squeeze(1)
+        en = _first_row(n, j)
+        sp = support_minkowski(sa, sb, en, wa, wb)
+        dsp = _dot2(sp, en)
+        converged = (dsp - closest) < eps * torch.clamp(dsp, min=1.0)
+        # insert sp at k = (j + 1) % count
+        k = torch.where(j + 1 >= count, 0, j + 1)[:, None]
+        shifted = torch.where((idx < k)[..., None], poly,
+                              torch.where((idx == k)[..., None],
+                                          sp[:, None, :],
+                                          torch.roll(poly, 1, dims=1)))
+        cap_hit = count >= cap
+        grow = active & ~converged & ~cap_hit
+        better = active & (dsp < pen)
+        poly = torch.where(grow[:, None, None], shifted, poly)
+        count = torch.where(grow, count + 1, count)
+        done = done | (active & (converged | cap_hit))
+        started = started | active
+        normal = torch.where(better[:, None], en, normal)
+        pen = torch.where(better, dsp, pen)
+    pen = torch.where(torch.isfinite(pen), pen, 0.0)
+    return started & ~degenerate, normal, pen
+
+
+# ---------------------------------------------------------------------------
+# SAT (closed form)
+# ---------------------------------------------------------------------------
+
+def _proj_minmax(d, w, mask):
+    """(min, max) over each ring's valid vertices of their projections on
+    d: d [N, 2], w [N, V, 2], mask [N, V]."""
+    p = _dot2(w, d[:, None, :])
+    inf = torch.full((), float("inf"), dtype=w.dtype, device=w.device)
+    return (torch.where(mask, p, inf).amin(dim=1),
+            torch.where(mask, p, -inf).amax(dim=1))
+
+
+def _sat_circle_poly(circ, poly):
+    """Circle rows ``circ`` against polygon rows ``poly``, closed form:
+    (hit, normal pointing poly -> circle, penetration)."""
+    wv, wm, wc = world_verts(poly)
+    fn, _, e = _outward_face_normals(wv, wm, wc)
+    c = circ["pos"][:, None, :]
+    r = circ["radius"]
+    inf = torch.full((), float("inf"), dtype=wv.dtype, device=wv.device)
+    d_face = torch.where(wm, _dot2(fn, c - wv), -inf)
+    inside = (d_face <= 0.0).all(dim=1)
+    i_in = d_face.argmax(dim=1)                   # the deepest face
+    n_in = _first_row(fn, i_in)
+    pen_in = r - _first_row(d_face[..., None], i_in).squeeze(1)
+    ee = torch.clamp(_dot2(e, e), min=1e-30)
+    t = torch.clamp(_dot2(c - wv, e) / ee, 0.0, 1.0)
+    q = wv + e * t[..., None]
+    dq = c - q
+    dq2 = torch.where(wm, _dot2(dq, dq), inf)
+    i_out = dq2.argmin(dim=1)                     # the closest edge point
+    qbest = _first_row(q, i_out)
+    dist = sqrt(torch.clamp(_first_row(dq2[..., None], i_out).squeeze(1),
+                            min=0.0))
+    n_out = (circ["pos"] - qbest) / torch.clamp(dist, min=1e-12)[:, None]
+    n_out = torch.where((dist > 1e-12)[:, None], n_out, n_in)
+    hit = inside | (dist < r)
+    normal = torch.where(inside[:, None], n_in, n_out)
+    pen = torch.where(inside, pen_in, r - dist)
+    return hit & wm.any(dim=1), normal, torch.clamp(pen, min=0.0)
+
+
+def sat_contact(sa, sb, any_circle: bool = True):
+    """(hit [N], normal [N, 2], penetration [N]), closed form; the normal
+    points A -> B. Polygons take the separating-axis MTV, circles their
+    analytic cases (geometry.py ``sat_contact``). ``any_circle=False``
+    leaves the circle branches out."""
+    hit, normal, pen = _sat_poly_poly(*world_verts(sa), *world_verts(sb))
+    if not any_circle:
+        return hit, normal, pen
+    a_cir, b_cir = sa["is_circle"], sb["is_circle"]
+    dcc = sb["pos"] - sa["pos"]
+    dlen = sqrt(_dot2(dcc, dcc))
+    rsum = sa["radius"] + sb["radius"]
+    ncc = _circle_normal(dcc, dlen)
+    hit_ab, n_ab, p_ab = _sat_circle_poly(sa, sb)     # A circle, B poly
+    hit_ba, n_ba, p_ba = _sat_circle_poly(sb, sa)     # A poly, B circle
+    both = a_cir & b_cir
+    hit = torch.where(both, dlen < rsum, torch.where(
+        a_cir, hit_ab, torch.where(b_cir, hit_ba, hit)))
+    normal = torch.where(both[:, None], ncc, torch.where(
+        a_cir[:, None], -n_ab, torch.where(b_cir[:, None], n_ba, normal)))
+    pen = torch.where(both, rsum - dlen, torch.where(
+        a_cir, p_ab, torch.where(b_cir, p_ba, pen)))
+    return hit, normal, torch.clamp(pen, min=0.0)
+
+
+def _circle_normal(dcc, dlen):
+    """Unit centre-to-centre normal, (1, 0) for coincident centres."""
+    ncc = dcc / torch.clamp(dlen, min=1e-12)[:, None]
+    x = torch.zeros_like(ncc)
+    x[:, 0] = 1.0
+    return torch.where((dlen > 1e-12)[:, None], ncc, x)
 
 
 def _best_face(verts, mask, count, normal):

@@ -426,8 +426,31 @@ def test_cpu_tick_auto_equals_xla_bit_for_bit():
 
 
 def test_circle_grid_scene_is_refused():
+    """The grid scene with two circle solids, which the grid pipeline once
+    refused: it now takes the plain geometry path (circle SAT, then the
+    list pipeline's manifolds) in place of the kernel, as lpe_tpu takes
+    its XLA path. lpe_tpu's first tick (a rebuild) carried into the port,
+    the next tick (the guard holds) in both agrees per body at (b)'s
+    tolerances, with circles among the candidate pairs; the kernel
+    wrapper is not called."""
+    from lpe_tpu.systems.rigid import make_rigid as jmake
+    from lpe_tpu_torch.ops import rigid_kernels as RK
     from lpe_tpu_torch.systems import build_tick_fn
-    sc = _grid_scene("torch", circles=2)
-    assert sc.spec.any_rigid_circle
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        build_tick_fn(sc.spec, sc.cfg, device="cpu")
+    from lpe_tpu_torch.systems.rigid.grid_pipeline import grid_dims
+    js, ts = _grid_scene("jax", circles=2), _grid_scene("torch", circles=2)
+    assert ts.spec.any_rigid_circle
+    jstep = jax.jit(jmake(js.spec, js.cfg))
+    s1 = jstep(js.state)
+    want = _np(jstep(s1))
+    tick = build_tick_fn(ts.spec, ts.cfg, device="cpu")
+    step = tick.systems["rigid"]
+    RK.reset_counters()
+    out = state_to_numpy(step(state_from_numpy(_np(s1), "cpu")))
+    assert step.rebuilds == 0                         # the guard held
+    assert all(op.launches == op.plain_calls == 0 for op in RK.OPS)
+    _assert_bodies_close(out, want, "circle scene tick 2")
+    S = ts.spec.n_solid
+    circles = set(range(S - 2, S))
+    _, pairs = _sets(want, grid_dims(ts.spec, ts.cfg), S,
+                     ts.spec.solid_big_idx)
+    assert any(circles & set(p) for c in pairs.values() for p in c)

@@ -116,9 +116,19 @@ def test_plain_narrowphase_matches_lpe_tpu(jax_rows, spread, reference):
 def test_xla_geometry_path_matches_lpe_tpu(jax_rows):
     """The plain geometry path the ``narrowphase_backend="xla"`` grid
     pipeline calls: sat_contact then _pair_contacts, contact masks without
-    the hit, as lpe_tpu's XLA pair gives them."""
+    the hit, as lpe_tpu's XLA pair gives them. The same rows with every
+    third one a circle through ``sat_contact(any_circle=True)``, and the
+    polygon rows' manifolds at C = 3, against lpe_tpu's (hits and masks
+    equal; depths and points 1e-5, normals 1e-4 where a circle takes part,
+    as in tests/test_torch_list_rigid.py)."""
+    import jax
+    import jax.numpy as jnp
+    from lpe_tpu.systems.rigid import geometry as jgeo
+    from lpe_tpu.systems.rigid.pipeline import _pair_contacts as jpc
     from lpe_tpu_torch.systems.rigid import geometry as geo
     from lpe_tpu_torch.systems.rigid.pipeline import _pair_contacts
+    jsat = jax.jit(jax.vmap(lambda a, b: jgeo.sat_contact(a, b, True)))
+    jpc3 = jax.jit(jax.vmap(lambda a, b, n_, p_: jpc(a, b, n_, p_, 3)))
     for spread in (0.3, 1.5):
         sa, sb, xla, _ = jax_rows[spread]
         ta, tb = ({k: torch.from_numpy(np.asarray(v)) for k, v in s.items()}
@@ -128,10 +138,41 @@ def test_xla_geometry_path_matches_lpe_tpu(jax_rows):
         got = tuple(x.numpy() for x in (hit, nrm, pen, pts, pens, cval))
         _assert_like_pallas_test(got, xla)
         np.testing.assert_array_equal(got[5], xla[5])
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            geo.sat_contact(ta, tb, any_circle=True)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            _pair_contacts(ta, tb, nrm, pen, 3)
+        # C = 3 on the polygon rows: lpe_tpu's manifold, third row empty
+        pts3, pens3, cval3 = _pair_contacts(ta, tb, nrm, pen, 3)
+        polys = dict(is_circle=np.zeros(N, bool),
+                     radius=np.zeros(N, np.float32))
+        j3 = [np.asarray(x) for x in jpc3(
+            *({k: jnp.asarray(v) for k, v in dict(t, **polys).items()}
+              for t in (sa, sb)),
+            jnp.asarray(xla[1]), jnp.asarray(xla[2]))]
+        v = j3[2] & xla[0][:, None]
+        np.testing.assert_array_equal(cval3.numpy(), j3[2])
+        assert not j3[2][:, 2].any() and v[:, 0].any()
+        np.testing.assert_allclose(pts3.numpy()[v], j3[0][v], atol=1e-5)
+        np.testing.assert_allclose(pens3.numpy()[v], j3[1][v], atol=1e-5)
+        # circles: every third row of A and every fifth of B
+        cir = {}
+        for name, s_, step in (("a", sa, 3), ("b", sb, 5)):
+            c = dict(s_, is_circle=np.arange(N) % step == 0,
+                     radius=np.full(N, 0.3, np.float32))
+            c["nverts"] = np.where(c["is_circle"], 0, c["nverts"]) \
+                .astype(np.int32)
+            c["vmask"] = np.arange(V)[None, :] < c["nverts"][:, None]
+            cir[name] = c
+        ca, cb = ({k: torch.from_numpy(np.asarray(v)) for k, v in c.items()}
+                  for c in (cir["a"], cir["b"]))
+        hit, nrm, pen = geo.sat_contact(ca, cb, any_circle=True)
+        jhit, jnrm, jpen = (np.asarray(x) for x in jsat(
+            *({k: jnp.asarray(v) for k, v in c.items()}
+              for c in (cir["a"], cir["b"]))))
+        np.testing.assert_array_equal(hit.numpy(), jhit)
+        anyc = cir["a"]["is_circle"] | cir["b"]["is_circle"]
+        assert (jhit & anyc).any()
+        np.testing.assert_allclose(pen.numpy(), jpen, atol=1e-5)
+        for rows, atol in ((jhit & ~anyc, 1e-5), (jhit & anyc, 1e-4)):
+            np.testing.assert_allclose(nrm.numpy()[rows], jnrm[rows],
+                                       atol=atol)
 
 
 def _warm_inputs(seed, P=300, C=2):

@@ -112,8 +112,9 @@ def test_port_never_imports_jax():
 def test_out_of_slice_configurations_raise():
     from lpe_tpu_torch.scenarios import create_scenario
     from lpe_tpu_torch.systems.fluid import make_fluid
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        create_scenario("GALTON_BOARD", seed=0, device="cpu")
+    for name in ("KEPLERIAN_DISK", "PLANETARY_OCEAN"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            create_scenario(name, seed=0, device="cpu")
     sc = create_scenario("SIMPLE_FLUID", seed=0, device="cpu")
     for kw in (dict(pair_backend="xla"), dict(residency="sometimes")):
         cfg = sc.cfg.replace(fluid=dataclasses.replace(sc.cfg.fluid, **kw))
