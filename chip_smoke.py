@@ -99,9 +99,33 @@ Phases (any failure raises and exits non-zero, printing no result):
   15. RANDOM_POLYGONS, FLUID_AND_POLYGONS, GALTON_BOARD and HOURGLASSES
      (create_scenario, the list pipeline), 60 ticks each, counted, timed,
      finite;
-  16. print the bitwise twin checks as a JSON line, the K = 64 kernels,
-     the launches of each new path, the couplings on moving rigids, the
-     kernels' JSON line, then the result line.
+  17. KEPLERIAN_DISK (create_scenario, 1,000 bodies, the direct sum),
+     120 ticks through drive: no port kernel and no plain version,
+     finite, the median orbit-radius drift under 5% (lpe_tpu's gate), a
+     second run from seed 0 equal to the bit; ticks/s;
+  18. build_galaxy(100000), the direct sum at scale: 3 timed blocks
+     (drive), no host sync in a block, two blocks from one state equal to
+     the bit, one tick's velocity change against a float64 direct sum on
+     1,024 seeded receivers (p95 relative error < 1e-3), the direct sum
+     timed beside its bound;
+  19. build_galaxy(1000000), bench.py's galaxy on the P3M branch: the host
+     build time, the PP correction's K, subdivision, ncells and
+     overflow_fraction, up to 3 blocks of 10 within 60 s (no port kernel,
+     no plain version, finite, peak memory), no host sync in a block and
+     two blocks equal to the bit, one tick against the float64 direct
+     sum (p95 < 0.01, lpe_tpu's P3M gate; also over the receivers whose
+     PP cell did not overflow), the mesh, PP and heavy parts timed
+     beside their bounds;
+  20. PLANETARY_OCEAN (create_scenario), 60 ticks through drive: the
+     stacked chain 10 times a tick and nothing else, the ring survives
+     around the moon (lpe_tpu's gate), one tick of build_run_fn(ticks=1)
+     equals one of build_tick_fn to the bit (gravity keeps the
+     cross-tick grid off), the cells where the moon couples counted and
+     the couplings held against their plain versions there;
+  16. then print the bitwise twin checks as a JSON line, the K = 64
+     kernels, the launches of each new path, the couplings on moving
+     rigids, the gravity parts' times and bounds, the kernels' JSON line,
+     then the result line.
 Every kernel's line carries its bound: the larger of the bytes it must
 move on these inputs (slot_bytes, coupling9_bytes, coupling_bytes: what
 an empty slot or a cell that does not couple holds is counted only where
@@ -112,6 +136,7 @@ This script imports no jax and nothing of the lpe_tpu package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -132,6 +157,12 @@ LIST_TICKS = 60
 BLOCK = 10
 WARM_BLOCKS = 4      # dam blocks run before the kernel check (phase 3)
 SUBSTEPS = 10        # FluidConfig.num_sub_steps of the fluid scenes
+KEPLER_TICKS = 120    # tests/test_integration.py:47-55's horizon
+GALAXY_DIRECT_N = 100_000          # build_galaxy: the direct sum at scale
+GALAXY_N = 1_000_000               # bench.py's galaxy: the P3M branch
+GALAXY_BUDGET_S = 60.0
+REF_RECEIVERS = 1024  # receivers held against the float64 direct sum
+OCEAN_TICKS = 60      # tests/test_integration.py:107-117's horizon
 KERNEL_INFO = {   # name -> (CUDA source, the Pallas kernel it replaces)
     "migrate": ("lpe_tpu_torch/ops/csrc/migrate.cu",
                 "lpe_tpu/ops/pallas_sph.py:1128"),
@@ -167,6 +198,10 @@ MIGRATE_OPS = 20
 DENSITY_OPS, FORCE_OPS = 12, 48
 PAIR_OPS = DENSITY_OPS + FORCE_OPS
 CPL_OPS_PER_VERT, CPL_OPS = 25, 60
+# gravity: a source-receiver pair of the direct sums (dx, dy, d2, rsqrt,
+# the weight, two products summed) and of the PP pass (the same plus the
+# smoothstep rolloff and the cutoff test); a body's CIC deposit and gather
+GRAV_PAIR_OPS, PP_PAIR_OPS, CIC_OPS = 15, 30, 40
 
 
 def fail(msg: str) -> None:
@@ -370,14 +405,15 @@ def dam_sub_step(dev):
     return sc, fl, state, fl.grid_stack(fl.grid_build(state))
 
 
-def sub_step_inputs(SK, fl, state, ST):
+def sub_step_inputs(SK, fl, state, ST, wall=True):
     """Every SPH kernel's inputs on one sub-step from ``ST``, each fed by
     the kernel before it: M9 (migrate), the sweep's rho, fx, fy, the split
     kernels' planes D4 (density), D8 (force) and D10 (coupling: second kick
     and EOS applied), and two candidate sets: the main path's own (the
     boundary margin keeps the dam's fluid off its walls, so its cells copy
-    through) and with the floor wall moved into the fluid (moved_wall), so
-    that the candidate math runs on every occupied cell."""
+    through) and, with ``wall``, with the floor wall moved into the fluid
+    (moved_wall), so that the candidate math runs on every occupied
+    cell."""
     import torch
     ck = fl.couple_consts
     pad = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
@@ -386,15 +422,17 @@ def sub_step_inputs(SK, fl, state, ST):
     x1, y1, vx0, vy0, m, occ, hx, hy, _ = M9.unbind(1)
     rp, ax1, ay1 = (pad(v) for v in sw)
     cpl, fld, big = fl.coupling_inputs(state, M9)
-    live = (occ.sum(1) > 0).to(torch.int32).contiguous()
+    cands = {"main": (cpl, fld, big)}
+    if wall:
+        live = (occ.sum(1) > 0).to(torch.int32).contiguous()
+        cands["wall"] = (live, *moved_wall(SK, M9, fld, big, ck["V"]))
     return dict(
         M9=M9, sw=sw, D4=torch.stack([x1, y1, m, occ], 1),
         D8=torch.stack([x1, y1, vx0, vy0, m, rp, fl.eos(rp), occ], 1),
         D10=torch.stack([x1, y1, hx + ck["half_dt"] * ax1,
                          hy + ck["half_dt"] * ay1, rp, fl.eos(rp), m, occ,
                          ax1, ay1], 1),
-        cands={"main": (cpl, fld, big),
-               "wall": (live, *moved_wall(SK, M9, fld, big, ck["V"]))})
+        cands=cands)
 
 
 def couple_views(name, out):
@@ -425,7 +463,7 @@ def couple_check(name, label, op, a, ck, slots):
     # particles, which the plain version adds with index_add_ in an order
     # that varies by run on the card)
     pl_err = max_err(pl_k, pl_p)
-    big_err = max_err(big_k, big_p)
+    big_err = max_err(big_k, big_p) if big_p.numel() else 0.0   # no big
     part_scale = max(float(pl_p.abs().max()),
                      float(big_p.abs().max()) if big_p.numel() else 0.0)
     contact = int((big_p.abs() > 0).sum() + (pl_p.abs() > 0).sum())
@@ -1541,16 +1579,17 @@ def drive(dev, card, sc, label, cfg=None, settle=0, blocks=3):
     return run, settled, state, launches, tps
 
 
-def check_coupled_kernels(run, state, label):
+def check_coupled_kernels(run, state, label, need_force=True):
     """coupling9 and coupling on the sub-step from ``state`` with the
     scene's own candidates (moving rigids couple), against their plain
     versions at the smoke's tolerances (couple_check), timed flushed
-    (cuda_ms) and bounded. Returns {name: (max abs err, (ms, plain ms),
+    (cuda_ms) and bounded; with ``need_force``, a rigid must take a
+    nonzero force partial. Returns {name: (max abs err, (ms, plain ms),
     (bound ms, bound by))}."""
     from lpe_tpu_torch.ops import sph_kernels as SK
     fl = run.systems["fluid"]
     ST = fl.grid_stack(fl.grid_build(state))
-    inp = sub_step_inputs(SK, fl, state, ST)
+    inp = sub_step_inputs(SK, fl, state, ST, wall=False)
     cand = inp["cands"]["main"]
     ck = fl.couple_consts
     M9 = inp["M9"]
@@ -1564,7 +1603,7 @@ def check_coupled_kernels(run, state, label):
         args = (*cand, *tail)
         res, err, contact = couple_check(name, label, op, args, ck,
                                          ST.shape[2])
-        if contact == 0:
+        if need_force and contact == 0:
             fail(f"{name} ({label}): no particle coupled")
         times = (cuda_ms(lambda: op(*args, cn=ck)),
                  cuda_ms(lambda: op.plain(*args, cn=ck), 5))
@@ -1585,7 +1624,6 @@ def run_coupled(dev, card):
     block under set_sync_debug_mode("error") and two blocks from one state
     equal to the bit in every state field. Returns (launches by path,
     kernel results by name)."""
-    import torch
     from lpe_tpu_torch.scenarios.bench_scenes import build_coupled_dam
     sc = build_coupled_dam(*COUPLED, device=dev)
     print(f"coupled dam {COUPLED}: {sc.spec.n_solid} solids "
@@ -1608,21 +1646,7 @@ def run_coupled(dev, card):
         if label == "default":
             kern = check_coupled_kernels(run, settled, "coupled dam")
             drun, dstate = run, settled
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    drun(dstate)
-    torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    print("coupled dam block under set_sync_debug_mode('error'): no host "
-          "sync", flush=True)
-    a, b = drun(dstate), drun(dstate)
-    differ = [n for part in ("", "bodies")
-              for n, u, v in state_fields(a, b, part)
-              if not tensor_bits_equal(u, v)]
-    print(f"coupled dam: two 10-tick blocks from one state bitwise equal in "
-          f"every state field {not differ}", flush=True)
-    if differ:
-        fail(f"coupled dam: two blocks from one state differ in {differ}")
+    no_sync_and_bitwise(drun, dstate, "coupled dam")
     return paths, kern
 
 
@@ -1691,6 +1715,316 @@ def run_scenes(dev, card):
         paths[name] = drive(dev, card, sc, name,
                             blocks=LIST_TICKS // BLOCK)[3]
     return paths
+
+
+def exact_dv(state, step, cfg, idx):
+    """The velocity change of one gravity tick on receivers ``idx`` by a
+    float64 direct sum over all of the step's sources (step.masks), on the
+    card, 64 receivers at a time."""
+    import torch
+    from lpe_tpu_torch.core.constants import REAL_G
+    b = state.bodies
+    src, rcv = step.masks(b)
+    pos = b.pos.double()
+    ms = torch.where(src, b.mass.double(), 0.0)
+    soft2 = cfg.shared.gravitational_softener ** 2
+    out = []
+    for a in range(0, len(idx), 64):
+        i = idx[a:a + 64]
+        d = pos[None, :, :] - pos[i, None, :]              # [64, N, 2]
+        d2 = (d * d).sum(-1) + soft2
+        d2[torch.arange(len(i), device=pos.device), i] = float("inf")
+        w = ms[None, :] / (d2 * d2.sqrt())
+        out.append((w[..., None] * d).sum(1))
+    dt = cfg.shared.seconds_per_tick * float(state.base_time_accel) * \
+        float(state.time_scale)
+    return REAL_G * torch.cat(out) * dt * rcv[idx, None].double()
+
+
+def gravity_error(state, step, cfg, label):
+    """One gravity tick from ``state`` with its velocities zeroed (so the
+    new velocity is the tick's change, rounded once) against exact_dv on
+    REF_RECEIVERS receivers drawn from a seeded generator. Returns (the
+    receivers, their relative errors, float64)."""
+    import numpy as np
+    import torch
+    b = state.bodies
+    rcv = step.masks(b)[1].cpu().numpy()
+    idx = np.random.default_rng(0).choice(np.flatnonzero(rcv),
+                                          REF_RECEIVERS, replace=False)
+    idx = torch.from_numpy(idx).to(b.pos.device)
+    s0 = state.replace(bodies=b.replace(vel=torch.zeros_like(b.vel)))
+    dv = step(s0).bodies.vel[idx].double()
+    ex = exact_dv(state, step, cfg, idx)
+    err = ((dv - ex).norm(dim=1) / ex.norm(dim=1).clamp(min=1e-300))
+    print(f"{label}: one tick's velocity change on {REF_RECEIVERS} "
+          f"sampled receivers against a float64 direct sum: relative "
+          f"error median {float(err.median()):.3e}, p95 "
+          f"{float(err.quantile(0.95)):.3e}, max {float(err.max()):.3e}",
+          flush=True)
+    return idx, err
+
+
+def no_sync_and_bitwise(run, state, label):
+    """One block of ``run`` under set_sync_debug_mode("error") (no host
+    sync), then two blocks from one state equal to the bit in every
+    state field."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    run(state)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    a, b = run(state), run(state)
+    differ = [n for part in ("", "bodies")
+              for n, u, v in state_fields(a, b, part)
+              if not tensor_bits_equal(u, v)]
+    print(f"{label}: a block under set_sync_debug_mode('error') makes no "
+          f"host sync; two blocks from one state bitwise equal in every "
+          f"state field {not differ}", flush=True)
+    if differ:
+        fail(f"{label}: two blocks from one state differ in {differ}")
+
+
+def run_keplerian(dev, card):
+    """Phase 17: KEPLERIAN_DISK (1,000 bodies, the direct sum, the CLI's
+    default scene) through drive for KEPLER_TICKS ticks: no port kernel
+    and no plain version, finite; the median orbit-radius drift around the
+    central body under 5% (lpe_tpu's gate); a second run from seed 0
+    equal to the bit. Returns the launches."""
+    import torch
+    from lpe_tpu_torch.scenarios import create_scenario
+    sc = create_scenario("KEPLERIAN_DISK", seed=0, device=dev)
+    run, _, state, launches, _ = drive(dev, card, sc, "KEPLERIAN_DISK",
+                                       blocks=KEPLER_TICKS // BLOCK)
+    if run.systems["barnes_hut"].use_pm:
+        fail("KEPLERIAN_DISK: not on the direct sum")
+    p0, p1 = sc.state.bodies.pos.double(), state.bodies.pos.double()
+    r0 = (p0[1:1000] - p0[0]).norm(dim=1)
+    r1 = (p1[1:1000] - p1[0]).norm(dim=1)
+    drift = float(((r1 - r0).abs() / r0).median())
+    again = create_scenario("KEPLERIAN_DISK", seed=0, device=dev).state
+    for _ in range(KEPLER_TICKS // BLOCK):
+        again = run(again)
+    differ = [n for part in ("", "bodies")
+              for n, u, v in state_fields(state, again, part)
+              if not tensor_bits_equal(u, v)]
+    torch.cuda.synchronize()
+    print(f"KEPLERIAN_DISK: median orbit-radius drift after {KEPLER_TICKS} "
+          f"ticks {drift:.4e} (gate 5e-2); two runs from seed 0 bitwise "
+          f"equal {not differ}", flush=True)
+    if not drift < 0.05:
+        fail(f"KEPLERIAN_DISK: median orbit-radius drift {drift}")
+    if differ:
+        fail(f"KEPLERIAN_DISK: two runs from seed 0 differ in {differ}")
+    return launches
+
+
+def run_galaxy_direct(dev, card):
+    """Phase 18: build_galaxy(GALAXY_DIRECT_N), the direct sum at scale:
+    3 timed blocks (drive), no host sync in a block and two blocks from
+    one state bitwise equal; one tick against the float64 direct sum
+    (p95 relative error < 1e-3); the direct sum timed (CUDA events) beside
+    its bound. Returns (launches, (ms, bound ms, bound by))."""
+    from lpe_tpu_torch.scenarios.bench_scenes import build_galaxy
+    from lpe_tpu_torch.systems.barnes_hut import _direct_sum_accel
+    label = f"galaxy {GALAXY_DIRECT_N}"
+    t0 = time.perf_counter()
+    sc = build_galaxy(GALAXY_DIRECT_N, device=dev)
+    print(f"{label}: built on the host in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    run, _, state, launches, _ = drive(dev, card, sc, label)
+    step = run.systems["barnes_hut"]
+    if step.use_pm:
+        fail(f"{label}: not on the direct sum")
+    no_sync_and_bitwise(run, state, label)
+    _, err = gravity_error(state, step, sc.cfg, label)
+    if not float(err.quantile(0.95)) < 1e-3:
+        fail(f"{label}: p95 relative error {float(err.quantile(0.95))}")
+    b = state.bodies
+    src, rcv = step.masks(b)
+    soft2 = sc.cfg.shared.gravitational_softener ** 2
+    args = (b.pos, b.mass, src, rcv, soft2, step.chunk)
+    ms = cuda_ms(lambda: _direct_sum_accel(*args), reps=3)
+    n = b.pos.shape[0]
+    bnd = bound(nbytes(b.pos, b.mass, src, rcv, b.pos), GRAV_PAIR_OPS * n * n)
+    print(f"{label}: direct sum {ms:.4f} ms a tick (CUDA events, {n} "
+          f"bodies, row blocks of {step.chunk}) on {card}; bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x", flush=True)
+    return launches, (ms, *bnd)
+
+
+def run_galaxy(dev, card):
+    """Phase 19: build_galaxy(GALAXY_N), bench.py's galaxy on the P3M
+    branch: the host build time; the PP correction's K, subdivision,
+    ncells and overflow_fraction at tick 0; up to 3 timed blocks within
+    GALAXY_BUDGET_S, no port kernel and no plain version, finite, their
+    peak memory; no host sync in a block and two blocks bitwise equal;
+    one tick against the float64 direct sum (p95 relative error < 0.01,
+    lpe_tpu's P3M gate), over all sampled receivers and over those whose
+    PP cell did not overflow; the mesh, the PP correction and the heavy
+    direct sum timed apart (CUDA events) beside their bounds. Returns
+    (launches, {part: (ms, bound ms, bound by)})."""
+    import torch
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    from lpe_tpu_torch.scenarios.bench_scenes import build_galaxy
+    from lpe_tpu_torch.systems import build_run_fn
+    label = f"galaxy {GALAXY_N}"
+    t0 = time.perf_counter()
+    sc = build_galaxy(GALAXY_N, device=dev)
+    print(f"{label}: built on the host in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    run = build_run_fn(sc.spec, sc.cfg, ticks=BLOCK, device=dev)
+    step = run.systems["barnes_hut"]
+    pp = step.pp
+    if not step.use_pm or pp is None:
+        fail(f"{label}: not on the P3M branch")
+    print(f"{label}: P3M, pm_grid {sc.cfg.barnes_hut.pm_grid}; PP K {pp.K}, "
+          f"subdivision {pp.subdivision}, ncells {pp.ncells}, "
+          f"overflow_fraction at tick 0 "
+          f"{pp.overflow_fraction(sc.state.bodies.pos):.6f}", flush=True)
+    ops = (*SK.OPS, *RK.OPS)
+    SK.reset_counters()
+    RK.reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, ticks, t0 = sc.state, 0, time.perf_counter()
+    while ticks < 3 * BLOCK:
+        tb = time.perf_counter()
+        state = run(state)
+        torch.cuda.synchronize()
+        ticks += BLOCK
+        now = time.perf_counter()
+        if now - t0 + (now - tb) > GALAXY_BUDGET_S:
+            break
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {op.name: op.launches for op in ops if op.launches}
+    if launches or any(op.plain_calls for op in ops):
+        fail(f"{label}: launches {launches}, plain calls "
+             f"{ {op.name: op.plain_calls for op in ops} }")
+    for f in ("pos", "vel"):
+        if not bool(torch.isfinite(getattr(state.bodies, f)).all()):
+            fail(f"{label}: non-finite {f}")
+    print(f"{label}: {ticks} ticks at {ticks / dt:.3f} ticks/s (host clock, "
+          f"synchronized blocks of {BLOCK}) on {card}; peak memory "
+          f"{peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
+    no_sync_and_bitwise(run, state, label)
+    idx, err = gravity_error(state, step, sc.cfg, label)
+    b = state.bodies
+    cid = pp.cells_of(b.pos)
+    cnt = torch.zeros(pp.ncells + 1, dtype=torch.int64, device=b.pos.device)
+    cnt = cnt.scatter_add(0, cid, torch.ones_like(cid))
+    kept = (cid[idx] < pp.ncells) & (cnt[cid[idx]] <= pp.K)
+    ek = err[kept]
+    print(f"{label}: over the {int(kept.sum())} sampled receivers whose PP "
+          f"cell did not overflow: median {float(ek.median()):.3e}, p95 "
+          f"{float(ek.quantile(0.95)):.3e}, max {float(ek.max()):.3e}; "
+          f"overflow_fraction now {pp.overflow_fraction(b.pos):.6f}",
+          flush=True)
+    if not float(err.quantile(0.95)) < 0.01:
+        fail(f"{label}: p95 relative error {float(err.quantile(0.95))}")
+    # the three parts on this state, as the step calls them
+    src, _ = step.masks(b)
+    heavy = src & (b.mass >= sc.cfg.barnes_hut.heavy_threshold)
+    mm = torch.where(src & ~heavy, b.mass, 0.0)
+    n = b.pos.shape[0]
+    occ = torch.clamp(cnt[:pp.ncells], max=pp.K).double()
+    nc, m = int(round(pp.ncells ** 0.5)), pp.subdivision
+    occ2 = torch.nn.functional.pad(occ.reshape(1, 1, nc, nc), (m,) * 4)
+    near = torch.nn.functional.avg_pool2d(occ2, 2 * m + 1, stride=1) * \
+        (2 * m + 1) ** 2                   # live slots a cell's bodies scan
+    pairs = float((occ * near.reshape(-1)).sum())
+    P = 2 * sc.cfg.barnes_hut.pm_grid
+    fft_ops = 3 * 2.5 * P * P * math.log2(P * P)
+    parts = {}
+    for name, fn, ins, n_ops in (
+            ("mesh", lambda: step.pm(b.pos, mm), (b.pos, mm),
+             fft_ops + CIC_OPS * n),
+            ("pp", lambda: pp(b.pos, mm), (b.pos, mm),
+             PP_PAIR_OPS * pairs),
+            ("heavy", lambda: step.heavy_direct(b.pos, b.mass, heavy),
+             (b.pos, b.mass, heavy),
+             GRAV_PAIR_OPS * n * sc.cfg.barnes_hut.heavy_cap)):
+        ms = cuda_ms(fn, reps=3)
+        n_bytes = nbytes(*ins, b.pos)        # the inputs, the [N, 2] result
+        bnd = bound(n_bytes, n_ops)
+        parts[name] = (ms, *bnd)
+        print(f"{label}: {name} {ms:.4f} ms (CUDA events) on {card}; byte "
+              f"bound {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x", flush=True)
+    print(f"{label}: PP pairs this state needs {pairs:.6g} (live slots of "
+          f"each resident body's {(2 * m + 1) ** 2} cells)", flush=True)
+    return launches, parts
+
+
+def run_ocean(dev, card):
+    """Phase 20: PLANETARY_OCEAN through create_scenario and drive for
+    OCEAN_TICKS ticks: the stacked chain 10 times a tick, no other kernel,
+    no plain version; the ring survives around the moon (lpe_tpu's gate:
+    (r < 2.5e5).mean() > 0.95, median r > 4e4); one tick of
+    build_run_fn(ticks=1) equals one of build_tick_fn to the bit (no
+    cross-tick grid under gravity); the fluid cells that couple with the
+    moon (a particle there takes a force from it) counted and, where any
+    do, the couplings held against their plain versions there
+    (check_coupled_kernels; the ocean's pressure is clamped at 0 below
+    its rest density, so the moon may move particles and take no force
+    back: nonzero force partials are not required). Returns (launches,
+    kernel results or None)."""
+    import torch
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    from lpe_tpu_torch.scenarios import create_scenario
+    from lpe_tpu_torch.systems import build_run_fn, build_tick_fn
+    sc = create_scenario("PLANETARY_OCEAN", seed=0, device=dev)
+    label = "PLANETARY_OCEAN"
+    run, _, state, launches, _ = drive(dev, card, sc, label,
+                                       blocks=OCEAN_TICKS // BLOCK)
+    liq = sc.spec.liquid_slice
+    r = (state.bodies.pos[liq] - state.bodies.pos[1]).norm(dim=1)
+    inside, med = float((r < 2.5e5).float().mean()), float(r.median())
+    print(f"{label}: after {OCEAN_TICKS} ticks {inside:.4f} of the ocean "
+          f"within 2.5e5 m of the moon (gate > 0.95), median radius "
+          f"{med:.1f} m (gate > 4e4)", flush=True)
+    if not (inside > 0.95 and med > 4e4):
+        fail(f"{label}: the ring did not survive")
+    one = build_run_fn(sc.spec, sc.cfg, ticks=1, device=dev)(state)
+    tick = build_tick_fn(sc.spec, sc.cfg, device=dev)(state)
+    differ = [n for part in ("", "bodies")
+              for n, u, v in state_fields(one, tick, part)
+              if not tensor_bits_equal(u, v)]
+    print(f"{label}: one tick of build_run_fn(ticks=1) equals one of "
+          f"build_tick_fn to the bit {not differ}", flush=True)
+    if differ:
+        fail(f"{label}: build_run_fn and build_tick_fn differ in {differ}")
+    # the cells where the moon (body 1) couples on the first sub-step from
+    # this state: coupling9 changes a live particle there (its position,
+    # velocity or acceleration differ from a copy-through, cpl = 0), and a
+    # candidate slot of the cell holds the moon
+    fl = run.systems["fluid"]
+    inp = sub_step_inputs(SK, fl, state, fl.grid_stack(fl.grid_build(state)),
+                          wall=False)
+    cpl, fld, big = inp["cands"]["main"]
+    ST1, ST0 = (SK.coupling9(c, fld, big, inp["M9"], *inp["sw"],
+                             cn=fl.couple_consts)[0]
+                for c in (cpl, torch.zeros_like(cpl)))
+    occ = inp["M9"][:, SK.M9_OCC] > 0
+    acted = ((ST1 != ST0).any(1) & occ).any(1)          # [rows, cols]
+    moon = (fld[:, :, SK.RW_M, :] == state.bodies.mass[1]).any(1)
+    n_moon = int((acted & moon).sum())
+    gap = float(r.min()) - float(state.bodies.radius[1])
+    print(f"{label}: after {OCEAN_TICKS} ticks {int((cpl > 0).sum())} fluid "
+          f"cells lie in a rigid's coupling window, {n_moon} of them couple "
+          f"with the moon (coupling9 changes a particle there); the nearest "
+          f"particle {gap:.1f} m off the moon's surface", flush=True)
+    torch.cuda.synchronize()
+    if n_moon == 0:
+        print(f"{label}: no fluid cell couples with the moon (no particle "
+              "within its contact margin), so the coupling kernels are not "
+              "held on this state", flush=True)
+        return launches, None
+    return launches, check_coupled_kernels(run, state, "planetary ocean",
+                                           need_force=False)
 
 
 def main(argv=None) -> int:
@@ -1782,7 +2116,14 @@ def main(argv=None) -> int:
     paths.update(run_scenes(dev, card))
     paths["north"], north = run_north(dev, card)
 
-    # 16. results: no single PyTorch call computes any of these kernels
+    # 17.-20. N-body gravity and the scenes it opens
+    paths["keplerian"] = run_keplerian(dev, card)
+    paths["galaxy_direct"], direct = run_galaxy_direct(dev, card)
+    paths["galaxy"], gparts = run_galaxy(dev, card)
+    paths["planetary_ocean"], ocean = run_ocean(dev, card)
+
+    # 16. results (after 17-20): no single PyTorch call computes any of
+    # these kernels
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], max_abs_err=errs[name],
                     ms=times[name][0], plain_ms=times[name][1],
@@ -1796,8 +2137,13 @@ def main(argv=None) -> int:
         scene: {name: dict(max_abs_err=e, ms=t[0], plain_ms=t[1],
                            bound_ms=b[0], bound_by=b[1])
                 for name, (e, t, b) in res.items()}
-        for scene, res in (("coupled_dam", coupled),
-                           ("north_star", north))}}), flush=True)
+        for scene, res in (("coupled_dam", coupled), ("north_star", north),
+                           ("planetary_ocean", ocean)) if res}}), flush=True)
+    print(json.dumps({"gravity_parts": {
+        name: dict(ms=t, bound_ms=b, bound_by=by) for name, (t, b, by) in
+        (("direct_sum_100k", direct), *((f"{k}_1m", v)
+                                        for k, v in gparts.items()))}}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,14 +3,18 @@
     python3 -m lpe_tpu_torch.profile_tick [SCENE ...]
 
 SCENE is any of dam, dam_split, dam_scatter, simple_fluid, rigid, coupled,
-highlight, north (all by default).
+highlight, north, keplerian, ocean, galaxy_direct, galaxy (all by
+default).
 
 A block is 10 ticks: one ``build_run_fn(ticks=10)`` call for DAM_BREAK
 100k (the grid stays resident across the block), RIGID_STACKS 10k (the
 bench's rigid config), the coupled dam (100k particles + 300 pentagons),
 the highlight reel (20k particles, 60 circles and polygons, 200 gas
-drifters) and the north star (100k particles + 10k polygons); ten
-``build_tick_fn`` calls for SIMPLE_FLUID.
+drifters), the north star (100k particles + 10k polygons), KEPLERIAN_DISK
+and PLANETARY_OCEAN (N-body gravity: the direct sum), the galaxy at 100k
+bodies (``galaxy_direct``, the direct sum at scale) and at 1M (``galaxy``,
+bench.py's, the P3M branch); ten ``build_tick_fn`` calls for
+SIMPLE_FLUID.
 DAM_BREAK 100k runs three times: in its default configuration (resident,
 the stacked kernel chain), with ``pair_backend="pallas"`` (resident, the
 split density, force and coupling kernels) and with ``residency="off"``,
@@ -31,7 +35,8 @@ split density, force and coupling kernels) and with ``residency="off"``,
   without the rebuild plus the narrowphase, and the solvers (the rest),
   with the guard's rebuilds per tick; the north star's the same;
 - for every scene, the device time per tick of each system's range
-  (the PyTorch ops it runs; the port's kernels fall in no range);
+  (the PyTorch ops it runs, ``barnes_hut`` for gravity; the port's
+  kernels fall in no range);
 - for the coupled dam and the highlight reel (the rigid list pipeline),
   the device time per tick and the kernel launches per tick of its
   ranges: the whole system, ``rigid.broadphase``, ``rigid.narrowphase``
@@ -69,7 +74,10 @@ BENCH_SCENES = {   # scene name -> (bench_scenes builder, its arguments)
     "coupled": ("build_coupled_dam", (DAM_N, 300)),
     "highlight": ("build_highlight_reel", (20_000, 60, 200)),
     "north": ("build_north_star", (DAM_N, RIGID_N)),
+    "galaxy_direct": ("build_galaxy", (DAM_N,)),
+    "galaxy": ("build_galaxy", (1_000_000,)),
 }
+CATALOG = {"keplerian": "KEPLERIAN_DISK", "ocean": "PLANETARY_OCEAN"}
 LABELS = {"dam": f"DAM_BREAK {DAM_N}",
           "dam_split": f"DAM_BREAK {DAM_N} split kernels",
           "dam_scatter": f"DAM_BREAK {DAM_N} scatter + split pair",
@@ -77,7 +85,10 @@ LABELS = {"dam": f"DAM_BREAK {DAM_N}",
           "rigid": f"RIGID_STACKS {RIGID_N}",
           "coupled": f"COUPLED_DAM {DAM_N} + 300",
           "highlight": "HIGHLIGHT 20000 + 60 + 200 gas",
-          "north": f"NORTH_STAR {DAM_N} + {RIGID_N}"}
+          "north": f"NORTH_STAR {DAM_N} + {RIGID_N}",
+          "keplerian": "KEPLERIAN_DISK", "ocean": "PLANETARY_OCEAN",
+          "galaxy_direct": f"GALAXY {DAM_N} (direct sum)",
+          "galaxy": "GALAXY 1000000 (P3M)"}
 
 
 def _scene(name, device):
@@ -97,6 +108,9 @@ def _scene(name, device):
         from .scenarios import bench_scenes
         fn, args = BENCH_SCENES[name]
         sc = getattr(bench_scenes, fn)(*args, device=device)
+        return sc, build_run_fn(sc.spec, sc.cfg, ticks=BLOCK, device=device)
+    if name in CATALOG:
+        sc = create_scenario(CATALOG[name], seed=0, device=device)
         return sc, build_run_fn(sc.spec, sc.cfg, ticks=BLOCK, device=device)
     sc = create_scenario(SimulationType.SIMPLE_FLUID, seed=0, device=device)
     tick = build_tick_fn(sc.spec, sc.cfg, device=device)
@@ -241,7 +255,7 @@ def profile_scene(name, device):
 
 def main(argv=None):
     import sys
-    names = (*DAM_FLUID, "simple_fluid", "rigid", *BENCH_SCENES)
+    names = (*DAM_FLUID, "simple_fluid", "rigid", *BENCH_SCENES, *CATALOG)
     want = list(sys.argv[1:] if argv is None else argv) or names
     if set(want) - set(names):
         raise SystemExit(f"profile_tick: scenes are {', '.join(names)}")

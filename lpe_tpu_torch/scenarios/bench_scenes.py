@@ -1,8 +1,7 @@
 """Benchmark scenes beyond the catalog (``lpe_tpu/scenarios/
 bench_scenes.py``): the SPH dam break, the rigid stacking stress, the
-north star (the dam spilling into 10k small polygons), the highlight reel
-and the coupled dam. The galaxy needs gravity (ROADMAP.md Queue 1 item
-4)."""
+north star (the dam spilling into 10k small polygons), the highlight reel,
+the galaxy and the coupled dam."""
 from __future__ import annotations
 
 import math
@@ -235,6 +234,15 @@ def build_highlight_reel(n_fluid: int = 20000, n_rigid: int = 60,
                   color=(20, 20 + count % 50, 200 + count % 55))
             count += 1
     return b.finalize(cfg, device=device)
+
+
+def build_galaxy(n_bodies: int = 100000, seed: int = 0, *,
+                 device="cuda") -> Scene:
+    """Barnes-Hut galaxy: central mass + power-law disk at scale
+    (KEPLERIAN_DISK's physics, reference content, larger N)."""
+    from .keplerian_disk import KeplerianDiskConfig, build
+    return build(seed=seed, ec=KeplerianDiskConfig(particle_count=n_bodies),
+                 device=device)
 
 
 def build_coupled_dam(n_fluid: int = 20000, n_rigid: int = 50,

@@ -21,19 +21,13 @@ from ..core.config import ScenarioSystemConfig
 from ..scene import SceneSpec
 from ..state import SimState
 from . import simple
+from .barnes_hut import make_barnes_hut
 
 
 def build_system_list(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                       device, fluid_mesh=None):
     from .fluid import make_fluid
     from .rigid import make_rigid
-
-    bh = cfg.barnes_hut
-    if bh.small_mass_threshold <= 0.0 or \
-            spec.max_nonboundary_mass >= bh.small_mass_threshold:
-        raise NotImplementedError(
-            "N-body gravity (Barnes-Hut / P3M) is not ported yet "
-            "(ROADMAP.md Queue 1 item 4)")
 
     systems = []
 
@@ -45,6 +39,7 @@ def build_system_list(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     addn("boundary", simple.make_boundary(spec, cfg))
     addn("gravity", simple.make_gravity(spec, cfg))
     addn("rigid", make_rigid(spec, cfg, device=device))
+    addn("barnes_hut", make_barnes_hut(spec, cfg, device=device))
     addn("rotation", simple.make_rotation(spec, cfg))
     addn("movement", simple.make_movement(spec, cfg))
     addn("sleep", simple.make_sleep(spec, cfg))
@@ -71,8 +66,8 @@ def build_run_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *, ticks: int,
     """Advance ``ticks`` ticks per call.
 
     When the fluid runs grid-resident and no other system needs per-tick
-    liquid state in particle order (no liquid Sleep; Barnes-Hut is not
-    ported), the fluid grid stays resident across the WHOLE block: one
+    liquid state in particle order (no Barnes-Hut, no liquid Sleep), the
+    fluid grid stays resident across the WHOLE block: one
     sort/scatter at block start, one gather-back at block end, with the
     per-tick boundary/gravity updates applied to the liquid planes in grid
     space (sph.py grid_boundary/grid_gravity). See
@@ -83,6 +78,7 @@ def build_run_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *, ticks: int,
     fl = sysd.get("fluid")
     cross_tick = (getattr(fl, "grid_build", None) is not None
                   and cfg.fluid.cross_tick_residency != "off"
+                  and "barnes_hut" not in sysd
                   and not spec.liquid_has_sleep)
 
     if not cross_tick:

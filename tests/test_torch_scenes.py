@@ -1,9 +1,10 @@
-"""The scenes the rigid list pipeline opens, built by the port against
-lpe_tpu's builders: the same seed gives bitwise the same scene (every
-field of the state and of its bodies, every SceneSpec field, the config),
-as tests/test_torch_state_scene.py holds SIMPLE_FLUID. Then each runs two
-ticks through the port's create_scenario / build_run_fn on the CPU, on
-the rigid pipeline lpe_tpu would pick, with finite state."""
+"""The scenes the rigid list pipeline and N-body gravity open, built by
+the port against lpe_tpu's builders: the same seed gives bitwise the same
+scene (every field of the state and of its bodies, every SceneSpec field,
+the config), as tests/test_torch_state_scene.py holds SIMPLE_FLUID. Then
+each rigid scene runs two ticks through the port's create_scenario /
+build_run_fn on the CPU, on the rigid pipeline lpe_tpu would pick, with
+finite state (the gravity scenes run in test_torch_gravity_scenes.py)."""
 import dataclasses
 
 import numpy as np
@@ -21,6 +22,9 @@ BENCH = {"coupled_dam": ("build_coupled_dam", (2000, 8)),
          "highlight_reel": ("build_highlight_reel", (2000, 12, 20)),
          "north_star": ("build_north_star", (2000, 300)),
          "north_star_grid": ("build_north_star", (2000, 1100))}
+# the scenes N-body gravity opens, with their solid counts
+GRAVITY = {"KEPLERIAN_DISK": 0, "PLANETARY_OCEAN": 2, "galaxy": 0}
+BENCH_GRAVITY = {"galaxy": ("build_galaxy", (2000,))}
 
 
 def _build(pkg, name):
@@ -30,13 +34,14 @@ def _build(pkg, name):
     else:
         from lpe_tpu_torch.scenarios import bench_scenes, create_scenario
         kw = dict(device="cpu")
-    if name in CATALOG:
+    builders = {**BENCH, **BENCH_GRAVITY}
+    if name not in builders:
         return create_scenario(name, seed=0, **kw)
-    fn, args = BENCH[name]
+    fn, args = builders[name]
     return getattr(bench_scenes, fn)(*args, seed=0, **kw)
 
 
-@pytest.mark.parametrize("name", CATALOG + tuple(BENCH))
+@pytest.mark.parametrize("name", CATALOG + tuple(BENCH) + tuple(GRAVITY))
 def test_scene_builder_is_lpe_tpus(name):
     from lpe_tpu.state import to_numpy
     js, ts = _build("jax", name), _build("torch", name)
@@ -55,7 +60,10 @@ def test_scene_builder_is_lpe_tpus(name):
             n += 1
     assert n == len(dataclasses.fields(Bodies)) + \
         len(dataclasses.fields(SimState)) - 1
-    assert ts.spec.n_solid >= 7
+    if name in GRAVITY:
+        assert ts.spec.n_solid == GRAVITY[name]
+    else:
+        assert ts.spec.n_solid >= 7
 
 
 def test_polygon_builders_are_lpe_tpus():
