@@ -122,10 +122,28 @@ Phases (any failure raises and exits non-zero, printing no result):
      equals one of build_tick_fn to the bit (gravity keeps the
      cross-tick grid off), the cells where the moon couples counted and
      the couplings held against their plain versions there;
+  21. the application layer (lpe_tpu_torch.app.cli.main, in this
+     process, on the card): a. `list` prints the seven scenarios; b. `run
+     --scenario SIMPLE_FLUID --ticks 120 --png --checkpoint`, every kernel
+     counter set to 0 just before: migrate, pair_sweep and coupling9 1,200
+     launches each, no other kernel and no plain version; the PNG decoded
+     here with zlib is [600, 600, 3], its fluid blue covers > 2% (lpe_tpu's
+     gate), and it equals to the bit the frame a fresh renderer draws from
+     the checkpoint; c. `run --resume` for 60 ticks equals one straight
+     180-tick run in every checkpoint field to the bit; d. `bench` prints
+     its JSON line; e. 600x600 frames of SIMPLE_FLUID (tick 120, the exact
+     splat), the 100k dam (tick 40, the convolution splat), the north star
+     (tick 10, the windowed painter over 10,004 solids) and the highlight
+     reel with debug on (tick 30: the loop painter, gas, both overlays):
+     two renders equal to the bit, the CPU frame of the same state within
+     the CPU tests' tolerance, ms a frame (CUDA events, median of 5), the
+     PyTorch ops and host syncs a frame beside the scene's ms a tick; f.
+     render_frame_with_ui's panel, and the stats block, equal the CPU's to
+     the bit; then an `app` JSON line;
   16. then print the bitwise twin checks as a JSON line, the K = 64
      kernels, the launches of each new path, the couplings on moving
-     rigids, the gravity parts' times and bounds, the kernels' JSON line,
-     then the result line.
+     rigids, the gravity parts' times and bounds, the app line, the
+     kernels' JSON line, then the result line.
 Every kernel's line carries its bound: the larger of the bytes it must
 move on these inputs (slot_bytes, coupling9_bytes, coupling_bytes: what
 an empty slot or a cell that does not couple holds is counted only where
@@ -2027,6 +2045,261 @@ def run_ocean(dev, card):
                                            need_force=False)
 
 
+# phase 21: the application layer
+APP_TICKS = 120       # `cli run`'s ticks, as phase 5's
+APP_RESUME = 60       # resumed from them, against one straight run
+APP_BENCH = 240       # `cli bench`'s ticks (lpe_tpu's CLI default)
+FRAME_RUNS = 5        # frames timed by CUDA events; the median is kept
+FRAME_EDGE_PIXELS = 1e-3   # CPU vs card frames: pixels off by > 1 level
+
+
+def cli(argv) -> str:
+    """``lpe_tpu_torch.app.cli.main(argv)`` in this process; fails unless
+    it returns 0. Returns what it printed to stdout."""
+    import contextlib
+    import io
+    from lpe_tpu_torch.app.cli import main as cli_main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    if rc != 0:
+        fail(f"cli {argv}: exit code {rc}")
+    return out.getvalue()
+
+
+def png_pixels(path):
+    """An 8-bit RGB PNG whose rows all take filter 0, as
+    lpe_tpu_torch.io.media.save_png writes them, decoded with zlib alone:
+    uint8 [H, W, 3]. Checks each chunk's CRC."""
+    import struct
+    import zlib
+    import numpy as np
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path}: not a PNG")
+    pos, idat, ihdr = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if zlib.crc32(kind + body) != struct.unpack(
+                ">I", data[pos + 8 + n:pos + 12 + n])[0]:
+            fail(f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    W, H, depth, ctype = ihdr[:4]
+    if (depth, ctype) != (8, 2):
+        fail(f"{path}: bit depth {depth}, color type {ctype}")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8) \
+        .reshape(H, 1 + 3 * W)
+    if raw[:, 0].any():
+        fail(f"{path}: a row with a filter other than 0")
+    return raw[:, 1:].reshape(H, W, 3)
+
+
+def frame_check(dev, label, sc, state, tick_ms, debug=False):
+    """Phase 21e for one state: a 600x600 frame rendered twice on the card
+    (equal to the bit), against the port's CPU frame of the same state
+    (pixels off by more than one level under FRAME_EDGE_PIXELS, the CPU
+    tests' tolerance), the card's ms a frame (CUDA events, median of
+    FRAME_RUNS), the PyTorch ops a frame and the host syncs a frame (sync
+    debug mode "warn": reported, not held)."""
+    import statistics
+    import warnings
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from lpe_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from lpe_tpu_torch.render import make_renderer
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace != "profiler":
+                Ops.n += 1
+            return func(*args, **(kwargs or {}))
+
+    frame = make_renderer(sc.spec, sc.cfg, debug=debug)
+    a, b = frame(state), frame(state)
+    if not torch.equal(a, b):
+        fail(f"{label}: two frames of one state differ")
+    host = frame(state_from_numpy(state_to_numpy(state), "cpu"))
+    d = (a.cpu().int() - host.int()).abs().amax(-1)
+    off = float((d > 1).float().mean())
+    if a.shape != (600, 600, 3) or off > FRAME_EDGE_PIXELS:
+        fail(f"{label}: {a.shape}, {off:.2e} of the pixels differ from "
+             f"the CPU frame by more than one level")
+    times = []
+    for _ in range(FRAME_RUNS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        frame(state)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    Ops.n = 0
+    with Ops():
+        frame(state)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        frame(state)
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    why = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                  if "synchroniz" in str(w.message)})
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    ms = statistics.median(times)
+    out = dict(ms=ms, ops=Ops.n, tick_ms=tick_ms, cpu_pixels_off=off,
+               equal_to_cpu=bool(torch.equal(a.cpu(), host)),
+               host_syncs=syncs)
+    where = f" (at {', '.join(why)})" if why else ""
+    print(f"{label}: frame {ms:.4f} ms (median of {FRAME_RUNS}, CUDA "
+          f"events; runs {', '.join(f'{t:.4f}' for t in times)}), "
+          f"{Ops.n} PyTorch ops, {syncs} host syncs{where} a frame; a tick "
+          f"{tick_ms:.4f} ms; two frames bitwise equal; CPU frame: "
+          f"{off:.2e} of the pixels off by > 1 level (equal to the bit: "
+          f"{out['equal_to_cpu']})", flush=True)
+    return out
+
+
+def run_app(dev, card):
+    """Phase 21: the application layer (lpe_tpu_torch.app.cli, the
+    renderer, the HUD, checkpoints) on the card. Returns the app line."""
+    import numpy as np
+    import torch
+    from lpe_tpu_torch.app.sim_manager import SimManager
+    from lpe_tpu_torch.core.constants import SCENARIO_NAMES, SimulationType
+    from lpe_tpu_torch.io.checkpoint import load_state
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    from lpe_tpu_torch.render import make_renderer
+    from lpe_tpu_torch.render.hud import BTN_RESET, PANEL_W
+    from lpe_tpu_torch.scenarios import create_scenario
+    from lpe_tpu_torch.scenarios.bench_scenes import (build_dam_break,
+                                                      build_highlight_reel,
+                                                      build_north_star)
+    app = {}
+    work = ROOT / "build" / "chip_smoke_app"
+    work.mkdir(parents=True, exist_ok=True)
+    png, c1, c2, c3 = (str(work / n) for n in
+                       ("f.png", "c1.npz", "c2.npz", "c3.npz"))
+    fluid = ["run", "--scenario", "SIMPLE_FLUID"]
+
+    # a. list
+    names = cli(["list"]).split()
+    if names != list(SCENARIO_NAMES.values()):
+        fail(f"cli list: {names}")
+    app["list"] = names
+
+    # b. run on SIMPLE_FLUID: the stacked chain, and nothing else
+    ops = (*SK.OPS, *RK.OPS)
+    SK.reset_counters()
+    RK.reset_counters()
+    t0 = time.perf_counter()
+    cli(fluid + ["--ticks", str(APP_TICKS), "--png", png, "--checkpoint",
+                 c1])
+    run_s = time.perf_counter() - t0
+    launches = {op.name: op.launches for op in ops if op.launches}
+    want = dict.fromkeys(("migrate", "pair_sweep", "coupling9"),
+                         APP_TICKS * SUBSTEPS)
+    if launches != want or any(op.plain_calls for op in ops):
+        fail(f"cli run: launches {launches}, expected {want}; plain calls "
+             f"{ {op.name: op.plain_calls for op in ops if op.plain_calls} }")
+    img = png_pixels(png)
+    blue = float(((img[:, :, 2] > 200) & (img[:, :, 0] < 100)).mean())
+    sc = create_scenario(SimulationType.SIMPLE_FLUID, seed=0, device=dev)
+    s120 = load_state(c1, device=dev)
+    fresh = make_renderer(sc.spec, sc.cfg)(s120).cpu().numpy()
+    if img.shape != (600, 600, 3) or not blue > 0.02 or \
+            not np.array_equal(img, fresh):
+        fail(f"cli run: PNG {img.shape}, blue {blue:.4f}, equal to a fresh "
+             f"renderer's frame of the checkpoint: "
+             f"{np.array_equal(img, fresh)}")
+    app["run"] = dict(ticks=APP_TICKS, seconds=run_s, launches=launches,
+                      blue=blue, png_is_the_checkpoints_frame=True)
+    print(f"cli run SIMPLE_FLUID {APP_TICKS} ticks --png --checkpoint: "
+          f"{run_s:.2f} s with the PNG on {card}; launches {launches}, no "
+          f"plain call; PNG {img.shape} decoded with zlib, blue {blue:.4f}, "
+          f"equal to a fresh renderer's frame of the checkpoint", flush=True)
+
+    # c. resume: 120 + 60 ticks against 180 straight, every field
+    cli(fluid + ["--resume", c1, "--ticks", str(APP_RESUME), "--checkpoint",
+                 c2])
+    cli(fluid + ["--ticks", str(APP_TICKS + APP_RESUME), "--checkpoint", c3])
+    with np.load(c2) as za, np.load(c3) as zb:
+        differ = sorted(set(za.files) ^ set(zb.files)) + [
+            k for k in za.files if k in zb.files and not (
+                za[k].dtype == zb[k].dtype and za[k].shape == zb[k].shape
+                and np.array_equal(za[k], zb[k], equal_nan=True))]
+        tick = int(za["tick"])
+    if differ or tick != APP_TICKS + APP_RESUME:
+        fail(f"cli run --resume: tick {tick}; fields that differ from one "
+             f"straight run: {differ}")
+    app["resume_bitwise"] = True
+    print(f"cli run --resume (tick {APP_TICKS}) --ticks {APP_RESUME}: every "
+          f"field equals one straight {tick}-tick run to the bit", flush=True)
+
+    # d. bench
+    line = cli(["bench", "--scenario", "SIMPLE_FLUID", "--ticks",
+                str(APP_BENCH)]).strip().splitlines()[-1]
+    app["bench"] = json.loads(line)
+    print(f"cli bench: {line} on {card}", flush=True)
+
+    # e. 600x600 frames of four states
+    frames = {}
+    tick_ms = 1e3 / app["bench"]["ticks_per_sec"]
+    frames["simple_fluid"] = frame_check(dev, "frame simple_fluid (tick "
+                                         f"{APP_TICKS}, exact splat)", sc,
+                                         s120, tick_ms)
+    for key, label, build, blocks, debug in (
+            ("dam", f"frame dam {DAM_N} (tick 40, convolution splat)",
+             lambda: build_dam_break(DAM_N, device=dev), 4, False),
+            ("north", f"frame north star {NORTH} (tick 10, windowed "
+             f"painter)", lambda: build_north_star(*NORTH, device=dev), 1,
+             False),
+            ("highlight", f"frame highlight reel {HIGHLIGHT} (tick 30, "
+             f"debug: loop painter, gas, overlays)",
+             lambda: build_highlight_reel(*HIGHLIGHT, device=dev), 3, True)):
+        scene = build()
+        _, _, state, _, tps = drive(dev, card, scene, f"{label}: its ticks",
+                                    blocks=blocks)
+        frames[key] = frame_check(dev, label, scene, state, 1e3 / tps, debug)
+    app["frames"] = frames
+
+    # f. the HUD: the window's panel, and the stats block on one image
+    mgrs = [SimManager(SimulationType.SIMPLE_FLUID, debug=True, device=d)
+            for d in (dev, "cpu")]
+    for m in mgrs:
+        m.state = load_state(c1, device=m.device)
+        m.stats.frames_per_sec = 59.94
+        m.stats.ticks_per_sec = app["bench"]["ticks_per_sec"]
+        m.set_time_scale(0.5)
+    card_ui, cpu_ui = (m.render_frame_with_ui(600, 600, highlight=BTN_RESET)
+                       for m in mgrs)
+    base = torch.from_numpy(img.copy())
+    stats_card = mgrs[0]._stats_overlay(base.to(dev), 59.94, 118.25, 0.5)
+    stats_cpu = mgrs[1]._stats_overlay(base, 59.94, 118.25, 0.5)
+    hud_same = card_ui.shape == (600, 600 + PANEL_W, 3) and \
+        np.array_equal(card_ui[:, 600:], cpu_ui[:, 600:]) and \
+        torch.equal(stats_card.cpu(), stats_cpu)
+    if not hud_same:
+        fail("render_frame_with_ui: the card's panel or stats block differs "
+             "from the CPU's")
+    app["hud_bitwise"] = True
+    app["window_bitwise"] = bool(np.array_equal(card_ui, cpu_ui))
+    print(f"render_frame_with_ui {card_ui.shape}: the panel and the stats "
+          f"block equal the CPU's to the bit (the whole window: "
+          f"{app['window_bitwise']})", flush=True)
+    return app
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2122,6 +2395,9 @@ def main(argv=None) -> int:
     paths["galaxy"], gparts = run_galaxy(dev, card)
     paths["planetary_ocean"], ocean = run_ocean(dev, card)
 
+    # 21. the application layer: the CLI, the renderer, the HUD
+    app = run_app(dev, card)
+
     # 16. results (after 17-20): no single PyTorch call computes any of
     # these kernels
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -2144,6 +2420,7 @@ def main(argv=None) -> int:
         (("direct_sum_100k", direct), *((f"{k}_1m", v)
                                         for k, v in gparts.items()))}}),
         flush=True)
+    print(json.dumps({"app": app}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ build bitwise-identical scenes. Every ``SimulationType`` has a builder.
 """
 from __future__ import annotations
 
-from ..core.constants import SimulationType
+from ..core.constants import (SimulationType, get_all_scenarios,
+                              get_scenario_name)
 from ..scene import Scene
 
 _BUILDERS = {}
@@ -29,3 +30,6 @@ def create_scenario(sim_type: SimulationType, seed: int = 0, *,
         sim_type = SimulationType[sim_type]
     return _BUILDERS[sim_type](seed=seed, device=device, **kw)
 
+
+def list_scenarios():
+    return [(s, get_scenario_name(s)) for s in get_all_scenarios()]

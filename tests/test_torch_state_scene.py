@@ -88,16 +88,25 @@ def test_convert_round_trip_is_bitwise(name):
 
 
 def test_port_never_imports_jax():
-    """Importing the port and running a full SIMPLE_FLUID tick loads no
-    jax (and no lpe_tpu, whose __init__ imports jax)."""
+    """Importing the port, running a full SIMPLE_FLUID tick, the CLI's
+    ``list`` and one SIMPLE_FLUID frame with the HUD loads no jax (and no
+    lpe_tpu, whose __init__ imports jax)."""
     code = (
         "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
         "import lpe_tpu_torch\n"
         "from lpe_tpu_torch.scenarios import create_scenario\n"
         "from lpe_tpu_torch.systems import build_tick_fn\n"
         "sc = create_scenario('SIMPLE_FLUID', seed=0, device='cpu')\n"
         "s = build_tick_fn(sc.spec, sc.cfg, device='cpu')(sc.state)\n"
         "assert int(s.tick) == 1\n"
+        "from lpe_tpu_torch.app.cli import main\n"
+        "assert main(['list']) == 0\n"
+        "from lpe_tpu_torch.app.sim_manager import SimManager\n"
+        "m = SimManager(lpe_tpu_torch.SimulationType.SIMPLE_FLUID,\n"
+        "               device='cpu')\n"
+        "assert m.render_frame_with_ui(120, 600).shape == (600, 320, 3)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib', 'lpe_tpu.')) or\n"
         "             m == 'lpe_tpu')\n"
@@ -122,3 +131,27 @@ def test_out_of_slice_configurations_raise():
     spec = dataclasses.replace(sc.spec, liquid_h_uniform=False)
     with pytest.raises(NotImplementedError, match="item 5"):
         make_fluid(spec, sc.cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["coordinates", "debug", "profiler"])
+def test_host_helper_copies_equal_lpe_tpu(name):
+    """The port's copies of lpe_tpu's host helpers (lpe_tpu/__init__.py
+    imports jax, so the port keeps its own) equal the originals but for
+    their docstrings."""
+    import ast
+
+    def code(path):
+        tree = ast.parse(open(path).read())
+        for node in ast.walk(tree):
+            body = getattr(node, "body", None)
+            if isinstance(body, list) and body and \
+                    isinstance(body[0], ast.Expr) and \
+                    isinstance(body[0].value, ast.Constant) and \
+                    isinstance(body[0].value.value, str):
+                node.body = body[1:] or [ast.Pass()]
+        return ast.dump(tree)
+
+    src = os.path.join(REPO, "lpe_tpu", "core", f"{name}.py")
+    port = os.path.join(REPO, "lpe_tpu_torch", "core", f"{name}.py")
+    assert code(port) == code(src)
+    assert open(port).read() != "" and "jax" not in code(port)
