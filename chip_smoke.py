@@ -12,7 +12,7 @@ alternated on one card (see compare()); the phases below are the first.
 Phases (any failure raises and exits non-zero, printing no result):
   1. require CUDA; print the card (nvidia-smi name, power limit), torch and
      CUDA versions;
-  2. build the seven CUDA kernels of ops/csrc/ with nvcc (timed);
+  2. build the CUDA kernels of ops/csrc/ with nvcc (timed);
   3. at the DAM_BREAK 100k shapes (the grid of the dam scene 40 ticks into
      its collapse), hold each SPH kernel against its plain PyTorch version
      and time both with CUDA events: the stacked chain (migrate, pair_sweep,
@@ -140,10 +140,24 @@ Phases (any failure raises and exits non-zero, printing no result):
      PyTorch ops and host syncs a frame beside the scene's ms a tick; f.
      render_frame_with_ui's panel, and the stats block, equal the CPU's to
      the bit; then an `app` JSON line;
+  22. mixed per-particle smoothing lengths (run_mixed_h): the 100k dam's
+     layout and walls with its odd particles at h 0.04 (the grid keeps
+     the uniform dam's shapes): a. migrate_h (to the bit), density_h and
+     force_h (phase 3's tolerances) against their plain versions 40 ticks
+     in, timed beside their bounds; b. 3 blocks of build_run_fn(ticks=10):
+     migrate_h, density_h, force_h and coupling 10 times a tick, no other
+     kernel and no plain version, finite, ticks/s; c. no host sync in a
+     block, two blocks from one state equal to the bit; d. the scatter
+     step, 10 ticks: density_h and force_h 10 times a tick; e. the liquid
+     without walls at 20,000 particles: one tick (fluid, boundary,
+     gravity) against the float64 oracle with per-particle h, on both
+     residencies (rho rtol 2e-4, positions atol 5e-6); f. all h 0.05 but
+     one far particle's: one tick of the h chain against the uniform split
+     chain (|dpos| <= 1e-4 m; whether to the bit is printed);
   16. then print the bitwise twin checks as a JSON line, the K = 64
      kernels, the launches of each new path, the couplings on moving
      rigids, the gravity parts' times and bounds, the app line, the
-     kernels' JSON line, then the result line.
+     mixed_h line, the kernels' JSON line, then the result line.
 Every kernel's line carries its bound: the larger of the bytes it must
 move on these inputs (slot_bytes, coupling9_bytes, coupling_bytes: what
 an empty slot or a cell that does not couple holds is counted only where
@@ -198,6 +212,15 @@ KERNEL_INFO = {   # name -> (CUDA source, the Pallas kernel it replaces)
                 "lpe_tpu/ops/pallas_sph.py:78"),
     "force": ("lpe_tpu_torch/ops/csrc/force.cu",
               "lpe_tpu/ops/pallas_sph.py:122"),
+    # the mixed-h variants (template instances of the same sources) of the
+    # kernels whose Pallas versions lpe_tpu does not run for mixed h (it
+    # takes its XLA pair passes, lpe_tpu/systems/fluid/sph.py:264)
+    "migrate_h": ("lpe_tpu_torch/ops/csrc/migrate.cu",
+                  "lpe_tpu/ops/pallas_sph.py:1128"),
+    "density_h": ("lpe_tpu_torch/ops/csrc/density.cu",
+                  "lpe_tpu/ops/pallas_sph.py:78"),
+    "force_h": ("lpe_tpu_torch/ops/csrc/force.cu",
+                "lpe_tpu/ops/pallas_sph.py:122"),
 }
 # H100 SXM published peaks (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -215,6 +238,11 @@ RIGID_MAX_DROP = 0.05
 MIGRATE_OPS = 20
 DENSITY_OPS, FORCE_OPS = 12, 48
 PAIR_OPS = DENSITY_OPS + FORCE_OPS
+# mixed h adds each pair's h-bar, its square and the kernels' normalisations
+# at h-bar (poly6: a max, three products and a divide; spiky and viscosity:
+# a max, five products and two divides), and force_h's near mark tests
+# every candidate against its own h-bar
+DENSITY_H_OPS, FORCE_H_OPS = DENSITY_OPS + 8, FORCE_OPS + 13
 CPL_OPS_PER_VERT, CPL_OPS = 25, 60
 # gravity: a source-receiver pair of the direct sums (dx, dy, d2, rsqrt,
 # the weight, two products summed) and of the PP pass (the same plus the
@@ -322,7 +350,10 @@ def state_fields(a, b, part=""):
 LIVE_PLANES = {"pair_sweep": 5,    # x, y, vx, vy, m of M9
                "migrate": 8,       # x, y, vx, vy, ax, ay, m, id of ST
                "density": 3,       # x, y, m of D4
-               "force": 7}         # x, y, vx, vy, m, rho, p of D8
+               "force": 7,         # x, y, vx, vy, m, rho, p of D8
+               "migrate_h": 9,     # migrate's and h of ST10
+               "density_h": 4,     # x, y, m, h of D5
+               "force_h": 8}       # force's and h of D9
 
 
 def slot_bytes(name, occ, outs) -> int:
@@ -465,6 +496,11 @@ def couple_views(name, out):
     return torch.stack(out[:4]), torch.stack(out[4:6]), out[6], out[7]
 
 
+# every coupling check of this run: its plain version's run-to-run spread,
+# its partials' error against the plain version and the limit it was held to
+COUPLE_ORACLE = []
+
+
 def couple_check(name, label, op, a, ck, slots):
     """A coupling kernel's outputs on arguments ``a``, whose cells hold up
     to ``slots`` live particles, against its plain version's: (outputs,
@@ -472,25 +508,37 @@ def couple_check(name, label, op, a, ck, slots):
     out = op(*a, cn=ck)
     st_k, a_k, pl_k, big_k = couple_views(name, out)
     st_p, a_p, pl_p, big_p = couple_views(name, op.plain(*a, cn=ck))
+    # the plain version a second time: its run-to-run spread (its partials
+    # are ordered scatter-adds, so none is expected)
+    spread = max(max_err(u, v) for u, v in zip(
+        (st_p, a_p, pl_p, big_p), couple_views(name, op.plain(*a, cn=ck)))
+        if u.numel())
     st_err = max_err(st_k, st_p)
     a_err = max_err(a_k, a_p)
     a_scale = float(a_p.abs().max())
     # partials: per (row, slot, column) and per (row, block) sums,
-    # elementwise, to 1e-5 plus 1e-6 of the largest for each 16 live slots
+    # elementwise, to 1e-5 plus 5e-7 of the largest for each 16 live slots
     # a cell may hold (float32 ulps of a block's sum over up to 32 x slots
-    # particles, which the plain version adds with index_add_ in an order
-    # that varies by run on the card)
+    # particles, which the plain version adds in slot-major order, the
+    # kernel column by column: 3.9e-7 of the largest on the dam's moved
+    # wall at 16 slots, on an H100; the plain version's ordered sums repeat
+    # to the bit, so no run-to-run spread is allowed for)
     pl_err = max_err(pl_k, pl_p)
     big_err = max_err(big_k, big_p) if big_p.numel() else 0.0   # no big
     part_scale = max(float(pl_p.abs().max()),
                      float(big_p.abs().max()) if big_p.numel() else 0.0)
     contact = int((big_p.abs() > 0).sum() + (pl_p.abs() > 0).sum())
+    limit = 1e-5 + 5e-7 * slots / 16 * part_scale
+    COUPLE_ORACLE.append(dict(check=f"{name} ({label})", spread=spread,
+                              partials_err=max(big_err, pl_err),
+                              limit=limit))
     print(f"{name} ({label}): cells coupled {int((a[0] > 0).sum())}, "
           f"nonzero partials {contact}, state err {st_err:.3e}, accel "
           f"err {a_err:.3e} of {a_scale:.4g}, partials err "
-          f"{max(big_err, pl_err):.3e} of {part_scale:.4g}", flush=True)
+          f"{max(big_err, pl_err):.3e} of {part_scale:.4g} (limit "
+          f"{limit:.3e}); plain version run to run {spread:.3e}", flush=True)
     if st_err > 1e-5 or a_err > max(1e-5, 1e-6 * a_scale) or \
-            max(big_err, pl_err) > 1e-5 + 1e-6 * slots / 16 * part_scale:
+            max(big_err, pl_err) > limit:
         fail(f"{name} ({label}) differs from its plain version")
     return out, max(st_err, big_err, pl_err), contact
 
@@ -2300,6 +2348,267 @@ def run_app(dev, card):
     return app
 
 
+# phase 22: mixed per-particle smoothing lengths
+MIXED_SMALL_H = 0.04  # tests/test_sph.py _mixed_h_scene's smaller h
+MIXED_ORACLE_N = 20_000
+
+
+def mixed_h_dam(n, dev, walls=True, far=None):
+    """build_dam_break(n)'s layout (and, with ``walls``, its tank walls)
+    through SceneBuilder, its odd-indexed liquid particles at smoothing
+    length MIXED_SMALL_H and the rest at the config's 0.05; with ``far``
+    (an h), every particle at the config's h and one more particle, at h
+    ``far``, alone in the air on the tank's right (the uniform limit)."""
+    import numpy as np
+    from lpe_tpu_torch.core import constants as C
+    from lpe_tpu_torch.core.config import (BroadphaseConfig,
+                                           RigidBodyConfig,
+                                           ScenarioSystemConfig,
+                                           SharedSystemConfig)
+    from lpe_tpu_torch.scenarios.simple_fluid import add_tank_walls
+    from lpe_tpu_torch.scene import SceneBuilder
+
+    scale = math.sqrt(n / 20000.0)
+    size = 6.0 * scale
+    cfg = ScenarioSystemConfig(shared=SharedSystemConfig(
+        universe_size_m=size, meters_per_pixel=size / C.SCREEN_LENGTH,
+        seconds_per_tick=1.0 / C.STEPS_PER_SECOND, time_acceleration=1.0,
+        grid_size=50, cell_size_pixels=C.SCREEN_LENGTH / 50),
+        rigid=RigidBodyConfig(broadphase=BroadphaseConfig(max_pairs=8)))
+    rng = np.random.default_rng(0)
+    b = SceneBuilder(f"MIXED_H_DAM_{n}")
+    if walls:
+        add_tank_walls(b, size, 0.05 * scale, 1e30, 0.0, 0.0)
+    x_min, x_max = 0.16 * scale, size * 0.35
+    y_min, y_max = size * 0.2, size - 0.16 * scale
+    spacing = math.sqrt((x_max - x_min) * (y_max - y_min) / n)
+    mass = 0.005 * (spacing / 0.0742) ** 2
+    n_cols = int((x_max - x_min) / spacing)
+    for k in range(n):
+        row, col = divmod(k, n_cols)
+        x = x_min + (col + 0.5) * spacing + rng.uniform(-0.05, 0.05) * spacing
+        y = y_max - (row + 0.5) * spacing + rng.uniform(-0.05, 0.05) * spacing
+        h = MIXED_SMALL_H if far is None and k % 2 else 0.0
+        b.add(pos=(x, y), mass=mass, phase=int(C.Phase.LIQUID),
+              shape_kind=int(C.ShapeKind.CIRCLE), radius=0.02,
+              static_friction=0.0, dynamic_friction=0.0,
+              color=(20, 20 + k % 50, 200 + k % 55), smoothing_length=h)
+    if far is not None:
+        b.add(pos=(0.9 * size, 0.3 * size), mass=mass,
+              phase=int(C.Phase.LIQUID), shape_kind=int(C.ShapeKind.CIRCLE),
+              radius=0.02, smoothing_length=far)
+    return b.finalize(cfg, device=dev)
+
+
+MIXED_KERNELS = ("migrate_h", "density_h", "force_h", "coupling")
+
+
+def run_mixed_h(dev, card):
+    """Phase 22: a mixed-h dam (mixed_h_dam(DAM_N)) on the card. (b) after
+    a warm-up block, 3 timed blocks of build_run_fn(ticks=10): migrate_h,
+    density_h, force_h and coupling 10 times a tick, no other kernel and no
+    plain version, finite; (a) at the state 40 ticks in, each h kernel
+    against its plain version (migrate_h to the bit; density_h and force_h
+    at phase 3's tolerances) and timed beside its bound; (c) no host sync
+    in a block, two blocks from one state equal to the bit; (d) the scatter
+    step (residency "off") for 10 ticks: density_h and force_h 10 times a
+    tick; (e) the liquid without walls at MIXED_ORACLE_N particles: one
+    tick against the float64 oracle with per-particle h (rho rtol 2e-4,
+    positions atol 5e-6, tests/test_sph.py's); (f) the uniform limit: all
+    h 0.05 and one far particle's 0.04, one tick of the h chain against the
+    uniform split chain (|dpos| <= 1e-4 m, phase 6a's tolerance). Returns
+    (the mixed_h line, {kernel: (max abs err, (ms, plain ms), bound)},
+    launches by kernel)."""
+    import numpy as np
+    import torch
+    from lpe_tpu_torch.oracle.sph_numpy import SphOracle
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    from lpe_tpu_torch.systems import build_run_fn, build_tick_fn
+
+    line = {}
+    sc = mixed_h_dam(DAM_N, dev)
+    liq = sc.spec.liquid_slice
+    hs = sc.state.bodies.h[liq]
+    if sc.spec.liquid_h_uniform or float(hs.min()) != np.float32(
+            MIXED_SMALL_H) or float(hs.max()) != np.float32(0.05):
+        fail(f"mixed-h dam: h from {float(hs.min())} to {float(hs.max())}")
+    # (b) the full run, counted over 3 blocks after a warm-up block
+    run = build_run_fn(sc.spec, sc.cfg, ticks=BLOCK, device=dev)
+    state = run(sc.state)
+    torch.cuda.synchronize()
+    ops = (*SK.OPS, *RK.OPS)
+    SK.reset_counters()
+    RK.reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state = run(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {op.name: op.launches for op in ops if op.launches}
+    want = dict.fromkeys(MIXED_KERNELS, 3 * BLOCK * SUBSTEPS)
+    if launches != want or any(op.plain_calls for op in ops):
+        fail(f"mixed-h dam: launches {launches}, expected {want}; plain "
+             f"calls { {op.name: op.plain_calls for op in ops} }")
+    for f in ("pos", "vel", "density"):
+        if not bool(torch.isfinite(getattr(state.bodies, f)).all()):
+            fail(f"mixed-h dam: non-finite {f}")
+    line["ticks_per_s"] = 3 * BLOCK / dt
+    line["launches"] = launches
+    print(f"mixed-h dam {DAM_N} (odd particles h {MIXED_SMALL_H}, the rest "
+          f"0.05): {line['ticks_per_s']:.2f} ticks/s over 3 blocks of "
+          f"{BLOCK} (host clock, synchronized) on {card}; launches "
+          f"{launches}", flush=True)
+
+    # (a) the h kernels at the state 40 ticks in
+    fl = run.systems["fluid"]
+    D = fl.grid_build(state)
+    ST10 = torch.cat([fl.grid_stack(D), D["h"][:, None]], 1).contiguous()
+    rows, _, K, W = ST10.shape
+    line["grid"] = dict(rows=rows, K=K, cols=W)
+    print(f"mixed-h dam: grid {tuple(ST10.shape)} [rows, planes, K, cols] "
+          f"(the uniform dam's: 275 rows, K = 16, 288 columns)", flush=True)
+    if (rows, K, W) != (275, 16, 288):
+        fail(f"mixed-h dam: grid rows={rows} K={K} cols={W}")
+    mk, fk = fl.migrate_consts, fl.force_h_consts
+    M10 = SK.migrate_h(ST10, **mk)
+    M10p = SK.migrate_h_plain(ST10, **mk)
+    if not same_bits(M10, M10p):
+        fail(f"migrate_h differs from its plain version (max abs err "
+             f"{max_err(M10, M10p)})")
+    x1, y1, vx, vy, m, occ, _, _, _, hp = M10.unbind(1)
+    D5 = torch.stack([x1, y1, m, occ, hp], 1)
+    rho = SK.density_h(D5)
+    rho_p = SK.density_h_plain(D5)
+    o = (occ > 0)[1:-1]
+    rho_rel = float(((rho - rho_p).abs() / rho_p.abs().clamp(min=1e-30))
+                    [o].max())
+    rp = torch.nn.functional.pad(rho_p, (0, 0, 0, 0, 1, 1))
+    D9 = torch.stack([x1, y1, vx, vy, m, rp, fl.eos(rp), occ, hp], 1)
+    frc = SK.force_h(D9, **fk)
+    frc_p = SK.force_h_plain(D9, **fk)
+    fscale = float(torch.stack(frc_p).abs().max())
+    misses = sum(int(((a - b).abs() > 1e-5 * b.abs() + 1e-6 * fscale).sum())
+                 for a, b in zip(frc, frc_p))
+    errs = {"migrate_h": 0.0, "density_h": max_err(rho, rho_p),
+            "force_h": max(max_err(a, b) for a, b in zip(frc, frc_p))}
+    print(f"migrate_h: bitwise equal to its plain version; density_h: rho "
+          f"rel err {rho_rel:.3e}; force_h: max abs err "
+          f"{errs['force_h']:.3e} (scale {fscale:.6g}), {misses} elements "
+          f"over 1e-5*|f| + {1e-6 * fscale:.3e}", flush=True)
+    if rho_rel > 1e-5 or misses:
+        fail("density_h or force_h differs from its plain version")
+    calls = {"migrate_h": (lambda: SK.migrate_h(ST10, **mk),
+                           lambda: SK.migrate_h_plain(ST10, **mk)),
+             "density_h": (lambda: SK.density_h(D5),
+                           lambda: SK.density_h_plain(D5)),
+             "force_h": (lambda: SK.force_h(D9, **fk),
+                         lambda: SK.force_h_plain(D9, **fk))}
+    pairs = neighbour_pairs((occ > 0).to(torch.int32))
+    n_occ = float((ST10[:, SK.ST_OCC] > 0).sum())
+    bounds = {
+        "migrate_h": bound(slot_bytes("migrate_h", ST10[:, SK.ST_OCC],
+                                      (M10,)), MIGRATE_OPS * n_occ),
+        "density_h": bound(slot_bytes("density_h", D5[:, 3], (rho,)),
+                           DENSITY_H_OPS * pairs),
+        "force_h": bound(slot_bytes("force_h", D9[:, SK.D8_OCC], frc),
+                         FORCE_H_OPS * pairs)}
+    kern = {}
+    for name, (k, p) in calls.items():
+        t = (cuda_ms(k), cuda_ms(p, 5))
+        warm = cuda_ms(k, cold=False)
+        kern[name] = (errs[name], t, bounds[name])
+        line[name] = dict(ms=t[0], warm_ms=warm, plain_ms=t[1],
+                          bound_ms=bounds[name][0],
+                          bound_by=bounds[name][1], max_abs_err=errs[name])
+        print(f"kernel {name}: max_abs_err {errs[name]:.3e}  kernel "
+              f"{t[0]:.4f} ms ({warm:.4f} warm)  plain {t[1]:.4f} ms  bound "
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]})", flush=True)
+
+    # (c) no host sync in a block; two blocks from one state, same bits
+    no_sync_and_bitwise(run, state, "mixed-h dam")
+
+    # (d) the scatter step
+    srun = build_run_fn(sc.spec, fluid_cfg(sc.cfg, residency="off"),
+                        ticks=BLOCK, device=dev)
+    if hasattr(srun.systems["fluid"], "grid_build"):
+        fail("mixed-h dam scatter: the fluid step is a resident one")
+    SK.reset_counters()
+    s2 = srun(state)
+    torch.cuda.synchronize()
+    sl = {op.name: op.launches for op in SK.OPS if op.launches}
+    if sl != dict.fromkeys(("density_h", "force_h"), BLOCK * SUBSTEPS) or \
+            any(op.plain_calls for op in SK.OPS) or \
+            not bool(torch.isfinite(s2.bodies.pos).all()):
+        fail(f"mixed-h dam scatter: launches {sl}, or non-finite")
+    line["scatter_launches"] = sl
+    print(f"mixed-h dam scatter: {BLOCK} ticks, launches {sl}, finite",
+          flush=True)
+
+    # (e) one tick against the float64 oracle
+    so = mixed_h_dam(MIXED_ORACLE_N, dev, walls=False)
+    lo_ = so.spec.liquid_slice
+    b0 = so.state.bodies
+    fc = so.cfg.fluid
+    orc = SphOracle(h=fc.grid.smoothing_length, rest_density=fc.rest_density,
+                    stiffness=fc.stiffness, viscosity=fc.viscosity,
+                    universe=so.cfg.shared.universe_size_m,
+                    margin=so.cfg.boundary.margin_pixels
+                    * so.cfg.shared.meters_per_pixel)
+    orc.hs = b0.h[lo_].double().cpu().numpy()
+    t0 = time.perf_counter()
+    p1, _, rho1, _ = orc.tick(*(v[lo_].double().cpu().numpy()
+                                for v in (b0.pos, b0.vel, b0.mass)))
+    t_orc = time.perf_counter() - t0
+    line["oracle"] = dict(n=MIXED_ORACLE_N, oracle_s=t_orc)
+    for res in ("on", "off"):
+        # the fluid, then the boundary and gravity, as the oracle's tick
+        tick = build_tick_fn(so.spec, fluid_cfg(so.cfg, residency=res),
+                             device=dev)
+        bt = tick(so.state).bodies
+        rg = bt.density[lo_].double().cpu().numpy()
+        pg = bt.pos[lo_].double().cpu().numpy()
+        rr = float((np.abs(rg - rho1) / np.abs(rho1)).max())
+        dp = float(np.abs(pg - p1).max())
+        line["oracle"][res] = dict(rho_rel=rr, dpos=dp)
+        print(f"mixed-h liquid {MIXED_ORACLE_N} (no walls), residency "
+              f"{res}: one tick against the float64 oracle (hs set; "
+              f"{t_orc:.1f} s on the host): rho rel {rr:.3e} (limit 2e-4), "
+              f"max |dpos| {dp:.3e} m (limit 5e-6)", flush=True)
+        if rr > 2e-4 or dp > 5e-6:
+            fail(f"mixed-h liquid, residency {res}: off the float64 oracle")
+
+    # (f) the uniform limit
+    ends = {}
+    for far in (0.05, MIXED_SMALL_H):
+        su = mixed_h_dam(DAM_N, dev, far=far)
+        if su.spec.liquid_h_uniform != (far == 0.05):
+            fail("uniform-limit scenes: wrong h")
+        SK.reset_counters()
+        ends[far] = build_run_fn(su.spec, fluid_cfg(su.cfg,
+                                                    pair_backend="pallas"),
+                                 ticks=1, device=dev)(su.state).bodies
+        torch.cuda.synchronize()
+        ul = {op.name: op.launches for op in SK.OPS if op.launches}
+        want = ("migrate_h", "density_h", "force_h") if far != 0.05 else \
+            ("migrate", "density", "force")
+        if ul != dict.fromkeys(want + ("coupling",), SUBSTEPS):
+            fail(f"uniform limit, far h {far}: launches {ul}")
+    lq = su.spec.liquid_slice
+    a, b = ends[MIXED_SMALL_H], ends[0.05]
+    dpos = max_err(a.pos[lq], b.pos[lq])
+    bitwise = all(same_bits(getattr(a, f)[lq], getattr(b, f)[lq])
+                  for f in ("pos", "vel", "density", "pressure"))
+    line["uniform_limit"] = dict(dpos=dpos, bitwise=bitwise)
+    print(f"uniform limit: all h 0.05, one far particle's {MIXED_SMALL_H}: "
+          f"one tick of the h chain vs the uniform split chain, max |dpos| "
+          f"{dpos:.3e} m (limit 1e-4); bitwise equal {bitwise}", flush=True)
+    if dpos > 1e-4:
+        fail("the mixed-h chain's uniform limit differs from the uniform "
+             "split chain")
+    return line, kern, launches
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2398,6 +2707,12 @@ def main(argv=None) -> int:
     # 21. the application layer: the CLI, the renderer, the HUD
     app = run_app(dev, card)
 
+    # 22. mixed per-particle smoothing lengths: the h chain on the card
+    mixed, hkern, hl = run_mixed_h(dev, card)
+    for name, (e, t, bnd) in hkern.items():
+        errs[name], times[name], bounds[name] = e, t, bnd
+        launches[name] = hl[name]
+
     # 16. results (after 17-20): no single PyTorch call computes any of
     # these kernels
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -2421,6 +2736,12 @@ def main(argv=None) -> int:
                                         for k, v in gparts.items()))}}),
         flush=True)
     print(json.dumps({"app": app}), flush=True)
+    print(json.dumps({"mixed_h": mixed}), flush=True)
+    print(json.dumps({"coupling_oracle": {
+        "spread_max": max(c["spread"] for c in COUPLE_ORACLE),
+        "worst_err_over_limit": max(c["partials_err"] / c["limit"]
+                                    for c in COUPLE_ORACLE),
+        "checks": COUPLE_ORACLE}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

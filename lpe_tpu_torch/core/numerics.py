@@ -23,3 +23,23 @@ def sqrt(x):
     off by one ulp; float64 then rounding to float32 is exact for a float32
     input (53 >= 2 * 24 + 2 bits), as IEEE ``sqrtf`` is on the GPU."""
     return torch.sqrt(x.double()).to(x.dtype)
+
+
+def scatter_add(out, idx, vals):
+    """``out`` with ``vals[i]`` added to ``out[idx[i]]`` for each i in
+    turn (``out.at[idx].add(vals)``), out of place, with the same bits at
+    any thread count. On the card ``index_put(accumulate=True)`` sorts the
+    indices stably and sums each slot's values in that order, with no float
+    atomics. On the CPU it adds large inputs with atomics across threads,
+    so the order, and the bits, follow the thread schedule; PyTorch's
+    deterministic algorithms make it add them serially in index order, the
+    one-thread result, so they are switched on for the call."""
+    if out.device.type != "cpu":
+        return out.index_put((idx,), vals, accumulate=True)
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return out.index_put((idx,), vals, accumulate=True)
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)

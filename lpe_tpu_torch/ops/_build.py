@@ -44,7 +44,9 @@ class MigrateParams(ctypes.Structure):
 
 class SweepParams(ctypes.Structure):
     # also the params of the split density and force kernels, which read
-    # the pressure as a plane and ignore stiffness and rest_density
+    # the pressure as a plane and ignore stiffness and rest_density, and
+    # of their mixed-h variants, which read h as a plane and ignore h, h2,
+    # poly6, spiky and visc_lap too
     _fields_ = [("rows", _i), ("K", _i), ("W", _i), ("h", _f), ("h2", _f),
                 ("poly6", _f), ("spiky", _f), ("visc_lap", _f),
                 ("viscosity", _f), ("min_d2", _f), ("min_rho", _f),
@@ -119,6 +121,9 @@ _ENTRIES = {   # name -> (number of tensor arguments, params type)
     "lpe_density": (2, SweepParams),
     "lpe_force": (3, SweepParams),
     "lpe_coupling": (7, CoupleParams),
+    "lpe_migrate_h": (2, MigrateParams),
+    "lpe_density_h": (2, SweepParams),
+    "lpe_force_h": (3, SweepParams),
 }
 _lib = None
 build_log = ""           # nvcc's report (-Xptxas -v) of this process's build

@@ -4,7 +4,10 @@
 // Replaces the Pallas TPU kernel make_density / _density_kernel
 // (lpe_tpu/ops/pallas_sph.py:78, built at :1356). Input D4 [rows, 4(x, y,
 // m, occ), K, W]; output rho [ny, K, W] over the interior rows, 0 in empty
-// slots.
+// slots. The mixed-h variant (lpe_density_h, VAR_H) takes D5 [rows, 5(x,
+// y, m, occ, h), K, W] and sums each pair's kernel at its h-bar
+// (sph_pair.cuh density_term_h; the JAX package runs mixed h through XLA's
+// density_core, lpe_tpu/systems/fluid/sph.py:488-517, not through Pallas).
 //
 // What bounds it on the H100: by bytes, one read of the occupancy plane
 // and of the live slots' x, y, m and one write of rho (~8 MB at DAM_BREAK
@@ -40,6 +43,9 @@
 //   from 33 to 64, the reference's cap, a 64-bit mask and 16 columns
 //   (94 KB of shared memory at K = 64).
 // - Outputs go through shared memory to stores along W.
+// - Mixed h (VAR_H): the h plane is staged with x, y, m (one more float an
+//   entry), and each pair's h-bar and poly6 normalisation, a divide, are
+//   computed for the pairs within h-bar only.
 #include "sph_pair.cuh"
 #include "stage.cuh"
 
@@ -48,7 +54,13 @@ namespace {
 constexpr int DN_BAND = 3;               // interior rows of a block
 constexpr int DN_ROWS = DN_BAND + 2;     // staged rows: one halo a side
 constexpr int DN_THREADS = 256;
-constexpr int DN_PART = 3;               // x, y, m
+// staged planes: x, y, m(, h); input planes: D4 or D5
+__host__ __device__ constexpr int dn_part(bool var_h) {
+  return var_h ? 4 : 3;
+}
+__host__ __device__ constexpr int dn_planes(bool var_h) {
+  return var_h ? 5 : 4;
+}
 
 template <class Mask>
 using DensityTier = StageTier<Mask, 1, DN_THREADS>;   // one halo column
@@ -57,17 +69,17 @@ using DensityTier = StageTier<Mask, 1, DN_THREADS>;   // one halo column
 // out[BAND][K][TILE], then Mask mask[ROWS][WIN] (after an even count of
 // floats: 8-byte aligned), int start[ROWS][WIN + 1], then bytes
 // slot[ROWS][E], cell[ROWS][E], with E = K * WIN entries a row (45,604
-// bytes at K = 16).
-template <class Mask>
+// bytes at K = 16; 56,484 with the h plane).
+template <class Mask, bool VAR_H>
 constexpr int density_smem(int K) {
   using T = DensityTier<Mask>;
-  return 4 * (DN_ROWS * DN_PART * K * T::WIN + DN_BAND * K * T::TILE +
+  return 4 * (DN_ROWS * dn_part(VAR_H) * K * T::WIN + DN_BAND * K * T::TILE +
               DN_ROWS * (T::WIN + 1)) +
          (int)sizeof(Mask) * DN_ROWS * T::WIN + 2 * DN_ROWS * K * T::WIN;
 }
 // the most a block may have on Hopper (227 KB), at each tier's largest K
-static_assert(density_smem<unsigned>(32) <= 232448, "smem at K = 32");
-static_assert(density_smem<unsigned long long>(64) <= 232448,
+static_assert(density_smem<unsigned, true>(32) <= 232448, "smem at K = 32");
+static_assert(density_smem<unsigned long long, true>(64) <= 232448,
               "smem at K = 64");
 
 // A 4-byte copy from global to shared memory that the thread does not wait
@@ -85,12 +97,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }  // namespace
 
 // grid: (column tiles, bands of DN_BAND interior rows); DN_THREADS threads.
-template <class Mask>
+template <class Mask, bool VAR_H>
 __global__ void __launch_bounds__(DN_THREADS)
     split_density_kernel(const float* __restrict__ d4,
                          float* __restrict__ rho_o, SweepParams P) {
   using T = DensityTier<Mask>;
   constexpr int DN_TILE = T::TILE, DN_WIN = T::WIN;
+  constexpr int DN_PART = dn_part(VAR_H);
   extern __shared__ __align__(16) float sm[];
   const int K = P.K, W = P.W, ny = P.rows - 2;
   const int E = K * DN_WIN;
@@ -108,7 +121,7 @@ __global__ void __launch_bounds__(DN_THREADS)
   const int p0 = 1 + blockIdx.y * DN_BAND;
   const int nb = min(DN_BAND, ny + 1 - p0);           // band rows [p0, p0+nb)
   const size_t plane = (size_t)K * W;
-  const size_t rs = 4 * plane;
+  const size_t rs = dn_planes(VAR_H) * plane;
   const float* occ = d4 + 3 * plane;
   auto X = [&](int r, int f) { return part + (r * DN_PART + f) * E; };
 
@@ -150,6 +163,7 @@ __global__ void __launch_bounds__(DN_THREADS)
       cp_async4(X(r, 0) + e, g);
       cp_async4(X(r, 1) + e, g + plane);
       cp_async4(X(r, 2) + e, g + 2 * plane);
+      if (VAR_H) cp_async4(X(r, 3) + e, g + 4 * plane);
       sslot[r * E + e] = (unsigned char)k;
       scell[r * E + e] = (unsigned char)l;
     });
@@ -164,10 +178,13 @@ __global__ void __launch_bounds__(DN_THREADS)
     for (int i = sr[1] + tid; i < sr[DN_WIN - 1]; i += nthr) {
       const int l = scell[r * E + i];
       const float cx = X(r, 0)[i], cy = X(r, 1)[i];
+      const float ch = VAR_H ? X(r, 3)[i] : 0.f;
       float acc = 0.f;
       for (int dy = -1; dy <= 1; ++dy)
-        staged_row_density(acc, X(r + dy, 0), X(r + dy, 1), X(r + dy, 2),
-                           start + (r + dy) * (DN_WIN + 1), l, cx, cy, P);
+        staged_row_density<VAR_H>(
+            acc, X(r + dy, 0), X(r + dy, 1), X(r + dy, 2),
+            start + (r + dy) * (DN_WIN + 1), l, cx, cy, P,
+            VAR_H ? X(r + dy, 3) : nullptr, ch);
       sout[((r - 1) * K + sslot[r * E + i]) * DN_TILE + (l - 1)] = acc;
     }
   }
@@ -186,15 +203,15 @@ __global__ void __launch_bounds__(DN_THREADS)
 
 namespace {
 
-template <class Mask>
+template <class Mask, bool VAR_H>
 cudaError_t launch_density(const float* d4, float* rho, cudaStream_t stream,
                            const SweepParams* P) {
   using T = DensityTier<Mask>;
-  const int smem = density_smem<Mask>(P->K);
+  const int smem = density_smem<Mask, VAR_H>(P->K);
   static int smem_set = 0;      // the largest dynamic size allowed so far
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        split_density_kernel<Mask>,
+        split_density_kernel<Mask, VAR_H>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set = smem;
@@ -202,18 +219,35 @@ cudaError_t launch_density(const float* d4, float* rho, cudaStream_t stream,
   const int ny = P->rows - 2;
   const dim3 grid((P->W + T::TILE - 1) / T::TILE,
                   (ny + DN_BAND - 1) / DN_BAND);
-  split_density_kernel<Mask><<<grid, DN_THREADS, smem, stream>>>(d4, rho,
-                                                                 *P);
+  split_density_kernel<Mask, VAR_H>
+      <<<grid, DN_THREADS, smem, stream>>>(d4, rho, *P);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+namespace {
+
+template <bool VAR_H>
+int density_entry(const float* d, float* rho, cudaStream_t stream,
+                  const SweepParams* P) {
+  if (P->K < 1 || P->K > 64 || P->rows < 3 || P->W < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)(P->K <= 32
+                   ? launch_density<unsigned, VAR_H>(d, rho, stream, P)
+                   : launch_density<unsigned long long, VAR_H>(d, rho,
+                                                               stream, P));
 }
 
 }  // namespace
 
 LPE_EXPORT int lpe_density(const float* d4, float* rho, cudaStream_t stream,
                            const SweepParams* P) {
-  if (P->K < 1 || P->K > 64 || P->rows < 3 || P->W < 1)
-    return (int)cudaErrorInvalidValue;
-  return (int)(P->K <= 32 ? launch_density<unsigned>(d4, rho, stream, P)
-                          : launch_density<unsigned long long>(d4, rho,
-                                                               stream, P));
+  return density_entry<false>(d4, rho, stream, P);
+}
+
+// D5: D4 and the particles' smoothing lengths
+LPE_EXPORT int lpe_density_h(const float* d5, float* rho,
+                             cudaStream_t stream, const SweepParams* P) {
+  return density_entry<true>(d5, rho, stream, P);
 }

@@ -7,7 +7,11 @@
 // (the caller ran the density pass and the EOS), unlike the pair sweep,
 // which derives them one row ahead. Outputs fx, fy [ny, K, W] over the
 // interior rows, 0 in empty slots. The self pair is excluded; a pair counts
-// when min_d2 <= r^2 < h^2 and both densities reach min_rho.
+// when min_d2 <= r^2 < h^2 and both densities reach min_rho. The mixed-h
+// variant (lpe_force_h, VAR_H) takes D9 [rows, 9(D8's planes, h), K, W]
+// and takes each pair at its h-bar: r^2 < h-bar^2, the spiky and viscosity
+// kernels at h-bar (sph_pair.cuh force_term_h; the JAX package runs mixed
+// h through XLA's force_core, lpe_tpu/systems/fluid/sph.py:545-599).
 //
 // What bounds it on the H100: by bytes, one read of the occupancy plane
 // and of the live slots' seven planes and one write of fx, fy (~18 MB at
@@ -44,6 +48,10 @@
 //   from 33 to 64, the reference's cap, a 64-bit mask and 16 columns
 //   (113 KB of shared memory at K = 64).
 // - Outputs go through shared memory to stores along W.
+// - Mixed h (VAR_H): the h plane is staged with the others (FC_PART 8),
+//   the near mark tests each neighbour against its pair's h-bar, and the
+//   pair's kernels (h-bar^5, two divides) are computed for the counted
+//   pairs only.
 #include "sph_pair.cuh"
 #include "stage.cuh"
 
@@ -52,7 +60,13 @@ namespace {
 constexpr int FC_BAND = 1;               // interior rows of a block
 constexpr int FC_RING = 3;               // staged particle rows
 constexpr int FC_THREADS = 256;
-constexpr int FC_PART = 7;               // x, y, vx, vy, m, rho, p term
+// staged planes: x, y, vx, vy, m, rho, p term(, h); input planes: D8 or D9
+__host__ __device__ constexpr int fc_part(bool var_h) {
+  return var_h ? 8 : 7;
+}
+__host__ __device__ constexpr int fc_planes(bool var_h) {
+  return var_h ? 9 : 8;
+}
 
 template <class Mask>
 using ForceTier = StageTier<Mask, 1, FC_THREADS>;   // one halo column
@@ -61,17 +75,17 @@ using ForceTier = StageTier<Mask, 1, FC_THREADS>;   // one halo column
 // out[2][K][TILE], then Mask mask[RING][WIN] (after an even count of
 // floats: 8-byte aligned), int start[RING][WIN + 1], then bytes
 // slot[RING][E], cell[RING][E], with E = K * WIN entries a row (53,884
-// bytes at K = 16).
-template <class Mask>
+// bytes at K = 16; 60,412 with the h plane).
+template <class Mask, bool VAR_H>
 constexpr int force_smem(int K) {
   using T = ForceTier<Mask>;
-  return 4 * (FC_RING * FC_PART * K * T::WIN + 2 * K * T::TILE +
+  return 4 * (FC_RING * fc_part(VAR_H) * K * T::WIN + 2 * K * T::TILE +
               FC_RING * (T::WIN + 1)) +
          (int)sizeof(Mask) * FC_RING * T::WIN + 2 * FC_RING * K * T::WIN;
 }
 // the most a block may have on Hopper (227 KB), at each tier's largest K
-static_assert(force_smem<unsigned>(32) <= 232448, "smem at K = 32");
-static_assert(force_smem<unsigned long long>(64) <= 232448,
+static_assert(force_smem<unsigned, true>(32) <= 232448, "smem at K = 32");
+static_assert(force_smem<unsigned long long, true>(64) <= 232448,
               "smem at K = 64");
 
 __device__ __forceinline__ int fc_ring(int q) {
@@ -81,13 +95,14 @@ __device__ __forceinline__ int fc_ring(int q) {
 }  // namespace
 
 // grid: (column tiles, bands of FC_BAND interior rows); FC_THREADS threads.
-template <class Mask>
+template <class Mask, bool VAR_H>
 __global__ void __launch_bounds__(FC_THREADS)
     split_force_kernel(const float* __restrict__ d8,
                        float* __restrict__ fx_o, float* __restrict__ fy_o,
                        SweepParams P) {
   using T = ForceTier<Mask>;
   constexpr int FC_TILE = T::TILE, FC_WIN = T::WIN;
+  constexpr int FC_PART = fc_part(VAR_H);
   extern __shared__ __align__(16) float sm[];
   const int K = P.K, W = P.W, ny = P.rows - 2;
   const int E = K * FC_WIN;
@@ -105,7 +120,7 @@ __global__ void __launch_bounds__(FC_THREADS)
   const int p0 = 1 + blockIdx.y * FC_BAND;
   const int p1 = min(p0 + FC_BAND, ny + 1);           // band rows [p0, p1)
   const size_t plane = (size_t)K * W;
-  const size_t rs = 8 * plane;
+  const size_t rs = fc_planes(VAR_H) * plane;
   const float* occ = d8 + 7 * plane;
   auto X = [&](int r, int f) { return part + (r * FC_PART + f) * E; };
 
@@ -148,6 +163,7 @@ __global__ void __launch_bounds__(FC_THREADS)
       X(rq, 4)[e] = g[4 * plane];
       X(rq, 5)[e] = rho;
       X(rq, 6)[e] = pressure_term(g[6 * plane], rho);
+      if (VAR_H) X(rq, 7)[e] = g[8 * plane];
       sslot[rq * E + e] = (unsigned char)k;
       scell[rq * E + e] = (unsigned char)l;
     });
@@ -168,6 +184,7 @@ __global__ void __launch_bounds__(FC_THREADS)
       const float cvx = X(rf, 2)[i], cvy = X(rf, 3)[i];
       const float crho = X(rf, 5)[i];
       const float cterm = X(rf, 6)[i];
+      const float ch = VAR_H ? X(rf, 7)[i] : 0.f;
       const bool crho_ok = crho >= P.min_rho;
       float fxa = 0.f, fya = 0.f;
       for (int dy = -1; dy <= 1; ++dy) {
@@ -176,9 +193,10 @@ __global__ void __launch_bounds__(FC_THREADS)
         const int rn = fc_ring(rowi);
         const int* sn = start + rn * (FC_WIN + 1);
         const StagedRow r = {X(rn, 0), X(rn, 1), X(rn, 2), X(rn, 3),
-                             X(rn, 4), X(rn, 5), X(rn, 6), sn};
-        staged_row_force(fxa, fya, r, l, dy == 0 ? i : -1, cx, cy, cvx, cvy,
-                         cterm, crho_ok, P);
+                             X(rn, 4), X(rn, 5), X(rn, 6), sn,
+                             VAR_H ? X(rn, 7) : nullptr};
+        staged_row_force<VAR_H>(fxa, fya, r, l, dy == 0 ? i : -1, cx, cy,
+                                cvx, cvy, cterm, crho_ok, P, ch);
       }
       const int o = sslot[rf * E + i] * FC_TILE + (l - 1);
       sout[o] = fxa;
@@ -202,15 +220,15 @@ __global__ void __launch_bounds__(FC_THREADS)
 
 namespace {
 
-template <class Mask>
+template <class Mask, bool VAR_H>
 cudaError_t launch_force(const float* d8, float* fx, float* fy,
                          cudaStream_t stream, const SweepParams* P) {
   using T = ForceTier<Mask>;
-  const int smem = force_smem<Mask>(P->K);
+  const int smem = force_smem<Mask, VAR_H>(P->K);
   static int smem_set = 0;      // the largest dynamic size allowed so far
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        split_force_kernel<Mask>,
+        split_force_kernel<Mask, VAR_H>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set = smem;
@@ -218,18 +236,35 @@ cudaError_t launch_force(const float* d8, float* fx, float* fy,
   const int ny = P->rows - 2;
   const dim3 grid((P->W + T::TILE - 1) / T::TILE,
                   (ny + FC_BAND - 1) / FC_BAND);
-  split_force_kernel<Mask><<<grid, FC_THREADS, smem, stream>>>(d8, fx, fy,
-                                                               *P);
+  split_force_kernel<Mask, VAR_H>
+      <<<grid, FC_THREADS, smem, stream>>>(d8, fx, fy, *P);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+namespace {
+
+template <bool VAR_H>
+int force_entry(const float* d, float* fx, float* fy, cudaStream_t stream,
+                const SweepParams* P) {
+  if (P->K < 1 || P->K > 64 || P->rows < 3 || P->W < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)(P->K <= 32
+                   ? launch_force<unsigned, VAR_H>(d, fx, fy, stream, P)
+                   : launch_force<unsigned long long, VAR_H>(d, fx, fy,
+                                                             stream, P));
 }
 
 }  // namespace
 
 LPE_EXPORT int lpe_force(const float* d8, float* fx, float* fy,
                          cudaStream_t stream, const SweepParams* P) {
-  if (P->K < 1 || P->K > 64 || P->rows < 3 || P->W < 1)
-    return (int)cudaErrorInvalidValue;
-  return (int)(P->K <= 32 ? launch_force<unsigned>(d8, fx, fy, stream, P)
-                          : launch_force<unsigned long long>(d8, fx, fy,
-                                                             stream, P));
+  return force_entry<false>(d8, fx, fy, stream, P);
+}
+
+// D9: D8 and the particles' smoothing lengths
+LPE_EXPORT int lpe_force_h(const float* d9, float* fx, float* fy,
+                           cudaStream_t stream, const SweepParams* P) {
+  return force_entry<true>(d9, fx, fy, stream, P);
 }

@@ -5,6 +5,9 @@
 // lpe_tpu/systems/fluid/sph.py:634 _migrate). Input ST [rows, 9, K, W],
 // output M9 [rows, 9, K, W] (plane orders in common.cuh), dense: every slot
 // that takes no particle, apron rows and padded columns included, is 0.
+// The mixed-h variant (lpe_migrate_h, F = 10) takes ST10 and writes M10:
+// a tenth plane, the particles' smoothing lengths, rides the permutation
+// (lpe_tpu/systems/fluid/sph.py:632, h among the migrated fields).
 //
 // What bounds it on the H100: bytes, and most of them the dense M9 write.
 // At DAM_BREAK 100k (275 rows, K = 16, 288 columns, 8% of the slots live)
@@ -44,6 +47,8 @@
 //   kept candidate's offset a short (116 KB of shared memory at K = 64).
 //   The ranks are lane ballots over candidates, whatever K: a target cell
 //   keeps its first K of up to 9 K candidates.
+// - F planes (9, or 10 with h): a plane past M9's is passive, staged and
+//   stored like the id (an 8% larger stage and 11% more bytes with h).
 #include "stage.cuh"
 
 namespace {
@@ -51,7 +56,10 @@ namespace {
 constexpr int MG_BAND = 3;               // target rows of a block
 constexpr int MG_RING = 3;               // staged source rows
 constexpr int MG_THREADS = 256;
-constexpr int MG_PART = 8;               // staged: M9's planes but occ
+// staged: the output's planes but occ
+__host__ __device__ constexpr int mg_part(int F) {
+  return F - 1;
+}
 
 template <class Mask>
 using MigrateTier = StageTier<Mask, 1, MG_THREADS>;   // one halo column
@@ -60,22 +68,23 @@ using MigrateTier = StageTier<Mask, 1, MG_THREADS>;   // one halo column
 // Mask mask[WIN] (after an even count of floats: 8-byte aligned), int
 // start[RING][WIN + 1], int cnt[TILE], then short kept[K][TILE] (a kept
 // candidate's offset in part), then bytes code[RING][E], with E = K *
-// WIN entries a row (55,564 bytes at K = 16).
-template <class Mask>
+// WIN entries a row (55,564 bytes at K = 16; 62,092 for F = 10).
+template <class Mask, int F>
 constexpr int migrate_smem(int K) {
   using T = MigrateTier<Mask>;
-  return 4 * (MG_RING * MG_PART * K * T::WIN + MG_RING * (T::WIN + 1) +
+  return 4 * (MG_RING * mg_part(F) * K * T::WIN + MG_RING * (T::WIN + 1) +
               T::TILE) +
          (int)sizeof(Mask) * T::WIN + 2 * K * T::TILE + MG_RING * K * T::WIN;
 }
 // the most a block may have on Hopper (227 KB), at each tier's largest K;
 // a kept candidate's offset in part fits a short
-static_assert(migrate_smem<unsigned>(32) <= 232448, "smem at K = 32");
-static_assert(migrate_smem<unsigned long long>(64) <= 232448,
+static_assert(migrate_smem<unsigned, 10>(32) <= 232448, "smem at K = 32");
+static_assert(migrate_smem<unsigned long long, 10>(64) <= 232448,
               "smem at K = 64");
-static_assert(MG_RING * MG_PART * 64 * MigrateTier<unsigned long long>::WIN
-                  <= 32768 &&
-              MG_RING * MG_PART * 32 * MigrateTier<unsigned>::WIN <= 32768,
+static_assert(MG_RING * mg_part(10) * 64 *
+                      MigrateTier<unsigned long long>::WIN <= 32768 &&
+                  MG_RING * mg_part(10) * 32 * MigrateTier<unsigned>::WIN <=
+                      32768,
               "short offsets");
 
 __device__ __forceinline__ int mg_ring(int q) {
@@ -91,12 +100,13 @@ __device__ __forceinline__ unsigned char target_code(int dy, int wl) {
 }  // namespace
 
 // grid: (column tiles, bands of MG_BAND rows); MG_THREADS threads.
-template <class Mask>
+template <class Mask, int F>
 __global__ void __launch_bounds__(MG_THREADS)
     migrate_kernel(const float* __restrict__ st, float* __restrict__ m9,
                    MigrateParams P) {
   using T = MigrateTier<Mask>;
   constexpr int MG_TILE = T::TILE, MG_WIN = T::WIN;
+  constexpr int MG_PART = mg_part(F);
   extern __shared__ __align__(16) float sm[];
   const int K = P.K, W = P.W;
   const int E = K * MG_WIN;
@@ -114,7 +124,7 @@ __global__ void __launch_bounds__(MG_THREADS)
   const int p0 = blockIdx.y * MG_BAND;
   const int p1 = min(p0 + MG_BAND, P.rows);           // band rows [p0, p1)
   const size_t plane = (size_t)K * W;
-  const size_t rs = 9 * plane;
+  const size_t rs = F * plane;
   auto X = [&](int r, int f) { return part + (r * MG_PART + f) * E; };
   auto occ_row = [&](int q) {
     return q >= 0 && q < P.rows ? st + q * rs + ST_OCC * plane : nullptr;
@@ -156,6 +166,8 @@ __global__ void __launch_bounds__(MG_THREADS)
       X(rq, 5)[e] = hx;
       X(rq, 6)[e] = hy;
       X(rq, 7)[e] = g[ST_ID * plane];
+#pragma unroll
+      for (int f = 9; f < F; ++f) X(rq, f - 1)[e] = g[f * plane];
       code[rq * E + e] = target_code(gy - q + 1, gx - cw + 1);
     });
     if (q < p1) ro.load(occ_row(q + 1), K, W, cw);
@@ -207,7 +219,7 @@ __global__ void __launch_bounds__(MG_THREADS)
       const float* src = part + (live ? kept[i] : 0);
       float* o = orow + (size_t)k * W + c;
 #pragma unroll
-      for (int g = 0; g < 9; ++g) {
+      for (int g = 0; g < F; ++g) {
         const int f = g < M9_OCC ? g : g - 1;
         o[g * plane] = !live ? 0.f
                        : g == M9_OCC ? 1.f
@@ -219,35 +231,51 @@ __global__ void __launch_bounds__(MG_THREADS)
 
 namespace {
 
-template <class Mask>
+template <class Mask, int F>
 cudaError_t launch_migrate(const float* st, float* m9, cudaStream_t stream,
                            const MigrateParams* P) {
   using T = MigrateTier<Mask>;
-  const int smem = migrate_smem<Mask>(P->K);
+  const int smem = migrate_smem<Mask, F>(P->K);
   static int smem_set = 0;      // the largest dynamic size allowed so far
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        migrate_kernel<Mask>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        migrate_kernel<Mask, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return err;
     smem_set = smem;
   }
   const dim3 grid((P->W + T::TILE - 1) / T::TILE,
                   (P->rows + MG_BAND - 1) / MG_BAND);
-  migrate_kernel<Mask><<<grid, MG_THREADS, smem, stream>>>(st, m9, *P);
+  migrate_kernel<Mask, F><<<grid, MG_THREADS, smem, stream>>>(st, m9, *P);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+namespace {
+
+template <int F>
+int migrate_entry(const float* st, float* m, cudaStream_t stream,
+                  const MigrateParams* P) {
+  if (P->K < 1 || P->K > 64 || P->rows < 3 || P->W < 1 || P->nx < 1 ||
+      P->nx > P->W - 2 || P->ny != P->rows - 2)
+    return (int)cudaErrorInvalidValue;
+  return (int)(P->K <= 32
+                   ? launch_migrate<unsigned, F>(st, m, stream, P)
+                   : launch_migrate<unsigned long long, F>(st, m, stream, P));
 }
 
 }  // namespace
 
 LPE_EXPORT int lpe_migrate(const float* st, float* m9, cudaStream_t stream,
                            const MigrateParams* P) {
-  if (P->K < 1 || P->K > 64 || P->rows < 3 || P->W < 1 || P->nx < 1 ||
-      P->nx > P->W - 2 || P->ny != P->rows - 2)
-    return (int)cudaErrorInvalidValue;
-  return (int)(P->K <= 32
-                   ? launch_migrate<unsigned>(st, m9, stream, P)
-                   : launch_migrate<unsigned long long>(st, m9, stream, P));
+  return migrate_entry<9>(st, m9, stream, P);
+}
+
+// ST10 -> M10: the particles' smoothing lengths ride the permutation
+LPE_EXPORT int lpe_migrate_h(const float* st10, float* m10,
+                             cudaStream_t stream, const MigrateParams* P) {
+  return migrate_entry<10>(st10, m10, stream, P);
 }
 
 LPE_EXPORT const char* lpe_error_string(int err) {

@@ -21,12 +21,10 @@ first ``heavy_cap`` heavy bodies by index. Changed for the GPU:
 
 - the spectra live on the device as ``complex64`` and multiply as complex
   tensors (lpe_tpu ships float32 re/im pairs, a TPU workaround);
-- the CIC deposit adds with one ``index_put(accumulate=True)`` over the
-  four corners in lpe_tpu's order, which runs as a stable sort and ordered
-  sums on the card: no float atomics, the same bits run to run. On the CPU
-  it adds serially on one thread; PyTorch adds a large input with atomics
-  when it has several threads, so there the bits repeat only with
-  ``torch.set_num_threads(1)`` or deterministic algorithms on;
+- the CIC deposit adds with one ordered scatter-add
+  (``core.numerics.scatter_add``) over the four corners in lpe_tpu's
+  order: no float atomics, the same bits run to run and at any thread
+  count;
 - the PP cell sort is stable, so an overflowing cell keeps its first K
   bodies by index (lpe_tpu's ``argsort(stable=False)`` may keep others);
 - the PP pass runs over the bodies, not the cells: each resident body
@@ -46,7 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.numerics import true_div
+from ..core.numerics import scatter_add, true_div
 
 # largest [bodies, K] pair temporary of a PP pass (128 MB float32)
 PP_BAND_ELEMS = 1 << 25
@@ -144,9 +142,8 @@ def make_pm_gravity(universe: float, grid: int, softener: float,
         # one ordered scatter-add of the four corners in turn: lpe_tpu's
         # four .at[slot].add() calls, with G*G the dump slot
         rho = torch.zeros((G * G + 1,), dtype=dtype, device=pos.device)
-        rho = rho.index_put((torch.cat([s for s, _ in corners]),),
-                            torch.cat([m * w for _, w in corners]),
-                            accumulate=True)
+        rho = scatter_add(rho, torch.cat([s for s, _ in corners]),
+                          torch.cat([m * w for _, w in corners]))
         pad = torch.zeros((P, P), dtype=dtype, device=pos.device)
         pad[:G, :G] = rho[:G * G].reshape(G, G)
         rho_hat = torch.fft.rfft2(pad)

@@ -1,6 +1,9 @@
 """The kernels of the SPH sub-step, with their plain PyTorch versions: the
-stacked chain (``migrate``, ``pair_sweep``, ``coupling9``) and the split
-kernels (``density``, ``force``, ``coupling``).
+stacked chain (``migrate``, ``pair_sweep``, ``coupling9``), the split
+kernels (``density``, ``force``, ``coupling``) and the split kernels of a
+scene whose liquid particles have mixed smoothing lengths (``migrate_h``,
+``density_h``, ``force_h``: each pair's kernel at h-bar = (h_i + h_j) / 2,
+``lpe_tpu/systems/fluid/sph.py`` density_core and force_core).
 
 Each public op launches a
 hand-written CUDA kernel (``csrc/*.cu``, built by ``_build.py``) for CUDA
@@ -20,6 +23,11 @@ any ``cols >= nx + 2`` padded columns (columns past nx+1 are empty):
 - ``D8`` (force input):     x, y, vx, vy, m, rho, p, occ        (``:142``)
 - ``D10`` (coupling input): x, y, vx1, vy1, rho, p, m, occ, ax, ay (``:567``)
 
+The mixed-h variants append the particles' smoothing length h as the last
+plane, so that planes 0-8 keep their indices: ``ST10`` and ``M10`` (ST and
+M9 + h, the migration carries h with the particle, ``lpe_tpu`` sph.py:632),
+``D5`` (D4 + h) and ``D9`` (D8 + h).
+
 The JAX package's per-(row, tile) occupancy tables (``rm2``, ``cpl2``) are
 scalar-prefetch devices of the TPU: the ops here take no ``rm2`` and a
 per-column ``cpl``.
@@ -29,13 +37,16 @@ The rigid candidate tables of the coupling (``fld`` and ``big``) use the
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from ..core.numerics import sqrt, true_div
+from ..core.numerics import scatter_add, sqrt, true_div
 
 (ST_X, ST_Y, ST_VX, ST_VY, ST_AX, ST_AY, ST_M, ST_ID, ST_OCC) = range(9)
 (M9_X, M9_Y, M9_VX, M9_VY, M9_M, M9_OCC, M9_HX, M9_HY, M9_ID) = range(9)
 (D8_X, D8_Y, D8_VX, D8_VY, D8_M, D8_RHO, D8_P, D8_OCC) = range(8)
+ST_H = M10_H = 9       # h, the last plane of ST10 and M10
 (D10_X, D10_Y, D10_VX, D10_VY, D10_RHO, D10_P, D10_M, D10_OCC, D10_AX,
  D10_AY) = range(10)
 (RW_PX, RW_PY, RW_VX, RW_VY, RW_OM, RW_M, RW_I, RW_RAD, RW_CIR,
@@ -84,10 +95,12 @@ def migrate_plain(ST, *, nx, half_dt, sub_dt, lim, cell, eps, gmin):
     position, clamped to the grid and to +-1 of its current cell (the
     walk of ``lpe_tpu/systems/fluid/sph.py`` _migrate). Each target cell
     takes its candidates in (dy, dx, slot) order over its 3x3 source
-    cells and keeps the first K; the rest are dropped. Returns M9."""
+    cells and keeps the first K; the rest are dropped. Returns M9; a tenth
+    plane of ST (h, ``migrate_h_plain``) rides the permutation into a
+    tenth plane of the output."""
     rows, F, K, W = ST.shape
     ny = rows - 2
-    x, y, vx, vy, ax, ay, m, pid, occ = ST.unbind(1)
+    x, y, vx, vy, ax, ay, m, pid, occ = ST.unbind(1)[:9]
     hx = vx + half_dt * ax
     hy = vy + half_dt * ay
     x1 = x + torch.clamp(hx * sub_dt, -lim, lim)
@@ -121,15 +134,25 @@ def migrate_plain(ST, *, nx, half_dt, sub_dt, lim, cell, eps, gmin):
     plane = K * W
 
     def dest(f):
-        d = ((ty * 9 + f) * K + rank) * W + tx
-        return torch.where(keep, d, torch.full_like(d, rows * 9 * plane))
+        d = ((ty * F + f) * K + rank) * W + tx
+        return torch.where(keep, d, torch.full_like(d, rows * F * plane))
 
-    out = torch.zeros(rows * 9 * plane + 1, dtype=ST.dtype, device=dev)
+    out = torch.zeros(rows * F * plane + 1, dtype=ST.dtype, device=dev)
     srcs = {M9_X: x1, M9_Y: y1, M9_VX: vx, M9_VY: vy, M9_M: m,
             M9_OCC: torch.ones_like(x), M9_HX: hx, M9_HY: hy, M9_ID: pid}
+    srcs.update({f: ST[:, f] for f in range(9, F)})
     for f, v in srcs.items():
         out.scatter_(0, dest(f), v.reshape(-1)[order])
-    return out[:-1].view(rows, 9, K, W)
+    return out[:-1].view(rows, F, K, W)
+
+
+def migrate_h_plain(ST10, **consts):
+    """``migrate_plain`` on ST10 [rows, 10, K, cols]: the particles'
+    smoothing lengths (plane 9) move with them. Returns M10, M9's planes
+    and h."""
+    if ST10.shape[1] != 10:
+        raise ValueError(f"migrate_h: expected ST10, got {tuple(ST10.shape)}")
+    return migrate_plain(ST10, **consts)
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +229,9 @@ class _Pairs:
 
 
 def _density_pairs(pairs, m, h, poly6):
-    """Flat [rows*K*W] poly6 density over ``pairs``, self term included."""
+    """Flat [rows*K*W] poly6 density over ``pairs``, self term included.
+    ``h`` and ``poly6`` are the grid's numbers, or per-pair [N, 9, K]
+    tensors for mixed h (``_pair_h``)."""
     h2 = h * h
     zero = torch.zeros((), dtype=m.dtype, device=m.device)
     d = h2 - pairs.r2
@@ -218,7 +243,8 @@ def _force_pairs(pairs, vx, vy, m, rho_full, p_full, *, h, spiky, visc_lap,
                  viscosity, min_d2, min_rho):
     """Flat [rows*K*W] fx, fy over ``pairs`` from the flat density and
     pressure planes, with the masks of ``lpe_tpu`` force_core
-    (sph.py:545-599)."""
+    (sph.py:545-599). ``h``, ``spiky`` and ``visc_lap`` are the grid's
+    numbers, or per-pair [N, 9, K] tensors for mixed h (``_pair_h``)."""
     zero = torch.zeros((), dtype=m.dtype, device=m.device)
     K = pairs.shape[1]
     r2, ddx, ddy = pairs.r2, pairs.ddx, pairs.ddy
@@ -244,6 +270,23 @@ def _force_pairs(pairs, vx, vy, m, rho_full, p_full, *, h, spiky, visc_lap,
     gy = gy - f_visc * (pairs.centre(vy) - pairs.neighbour(vy))
     return (pairs.dense(_offset_sum(torch.where(ok, gx, zero))),
             pairs.dense(_offset_sum(torch.where(ok, gy, zero))))
+
+
+def _pair_h(pairs, hpl):
+    """Per pair [N, 9, K] of a mixed-h grid (h plane ``hpl``): h-bar =
+    (h_i + h_j) / 2 and the kernels' 2D normalisations at h-bar, in the
+    operation order of ``lpe_tpu`` density_core and force_core
+    (sph.py:488-599; reference: fluid_kernels.metal:362-396): poly6
+    4 / (pi max(h-bar^2, 1e-30)^4), spiky -30 / (pi max(h-bar, 1e-30)^5),
+    viscosity 40 / (pi max(h-bar, 1e-30)^5). Powers multiply as XLA's
+    integer_pow does: x^4 = (x x)(x x), x^5 = x ((x x)(x x))."""
+    hb = 0.5 * (pairs.centre(hpl) + pairs.neighbour(hpl))
+    m2 = torch.clamp(hb * hb, min=1e-30)
+    m2 = m2 * m2
+    m1 = torch.clamp(hb, min=1e-30)
+    pi_h5 = math.pi * (m1 * ((m1 * m1) * (m1 * m1)))
+    return dict(h=hb, poly6=true_div(4.0, math.pi * (m2 * m2)),
+                spiky=true_div(-30.0, pi_h5), visc_lap=true_div(40.0, pi_h5))
 
 
 def pair_sweep_plain(M9, *, h, poly6, spiky, visc_lap, viscosity, min_d2,
@@ -277,6 +320,18 @@ def density_plain(D4, *, h, poly6):
     return rho.view(occ.shape)[1:-1]
 
 
+def density_h_plain(D5):
+    """Poly6 density over the 3x3 cells of D5 [rows, 5(x, y, m, occ, h), K,
+    cols] with each pair's kernel at its h-bar (``_pair_h``): a pair counts
+    when r^2 < h-bar^2. Returns rho [ny, K, cols] over the interior rows;
+    empty slots hold 0."""
+    x, y, m, occ, hpl = D5.unbind(1)
+    pairs = _Pairs(x, y, occ)
+    ph = _pair_h(pairs, hpl)
+    rho = _density_pairs(pairs, m, ph["h"], ph["poly6"])
+    return rho.view(occ.shape)[1:-1]
+
+
 def force_plain(D8, *, h, spiky, visc_lap, viscosity, min_d2, min_rho):
     """Symmetric spiky pressure force and viscosity-Laplacian force over
     the 3x3 cells of D8 [rows, 8(x, y, vx, vy, m, rho, p, occ), K, cols]
@@ -288,6 +343,21 @@ def force_plain(D8, *, h, spiky, visc_lap, viscosity, min_d2, min_rho):
     fx, fy = _force_pairs(_Pairs(x, y, occ), vx, vy, m, rho.reshape(-1),
                           p.reshape(-1), h=h, spiky=spiky,
                           visc_lap=visc_lap, viscosity=viscosity,
+                          min_d2=min_d2, min_rho=min_rho)
+    return tuple(v.view(occ.shape)[1:-1] for v in (fx, fy))
+
+
+def force_h_plain(D9, *, viscosity, min_d2, min_rho):
+    """``force_plain`` over D9 [rows, 9(x, y, vx, vy, m, rho, p, occ, h),
+    K, cols] with each pair's h-bar and kernels (``_pair_h``): a pair
+    counts when min_d2 <= r^2 < h-bar^2 and both densities reach min_rho.
+    Returns (fx, fy), each [ny, K, cols] over the interior rows."""
+    x, y, vx, vy, m, rho, p, occ, hpl = D9.unbind(1)
+    pairs = _Pairs(x, y, occ)
+    ph = _pair_h(pairs, hpl)
+    fx, fy = _force_pairs(pairs, vx, vy, m, rho.reshape(-1), p.reshape(-1),
+                          h=ph["h"], spiky=ph["spiky"],
+                          visc_lap=ph["visc_lap"], viscosity=viscosity,
                           min_d2=min_d2, min_rho=min_rho)
     return tuple(v.view(occ.shape)[1:-1] for v in (fx, fy))
 
@@ -543,19 +613,19 @@ def _couple_planes(cpl, fld, big, cn, x1, y1, vx1, vy1, rho, p, m, occ, ax,
     # force partials: sums over the K slots of a column (per slot s), and
     # over the BIG_BLOCK_COLS columns of a block (per big solid)
     parts = torch.stack([cfx, cfy, ctq], 2)              # [N, C, 3]
-    PL = torch.zeros((rows, S, 3, W), dtype=dt, device=dev)
     s_ = torch.arange(S, device=dev)
     pl_idx = ((r[:, None] * S + s_) * 3)[:, :, None] \
         + torch.arange(3, device=dev)
-    PL.view(-1).index_add_(0, (pl_idx * W + c[:, None, None]).reshape(-1),
-                           parts[:, :S].reshape(-1))
+    PL = scatter_add(torch.zeros(rows * S * 3 * W, dtype=dt, device=dev),
+                     (pl_idx * W + c[:, None, None]).reshape(-1),
+                     parts[:, :S].reshape(-1))
     NB = -(-W // BIG_BLOCK_COLS)
-    bigp = torch.zeros((rows, NB, NBIG * 3), dtype=dt, device=dev)
     blk = (r * NB + c // BIG_BLOCK_COLS) * NBIG * 3
-    bigp.view(-1).index_add_(
-        0, (blk[:, None] + torch.arange(NBIG * 3, device=dev)).reshape(-1),
+    bigp = scatter_add(
+        torch.zeros(rows * NB * NBIG * 3, dtype=dt, device=dev),
+        (blk[:, None] + torch.arange(NBIG * 3, device=dev)).reshape(-1),
         parts[:, S:].reshape(-1))
-    return planes, PL.view(rows, 3 * S, W), bigp
+    return planes, PL.view(rows, 3 * S, W), bigp.view(rows, NB, NBIG * 3)
 
 
 def coupling9_plain(cpl, fld, big, M9, rho, fx, fy, *, cn):
@@ -626,17 +696,27 @@ def _grid_shape(M, what, F=9):
     return rows, K, W
 
 
-def _migrate_cuda(ST, *, nx, half_dt, sub_dt, lim, cell, eps, gmin):
+def _migrate_launch(entry, F, ST, *, nx, half_dt, sub_dt, lim, cell, eps,
+                    gmin):
     from . import _build
-    rows, K, W = _grid_shape(ST, "migrate")
+    name = entry.removeprefix("lpe_")
+    rows, K, W = _grid_shape(ST, name, F)
     if not (1 <= nx <= W - 2):
-        raise ValueError(f"migrate: nx={nx} does not fit {W} columns")
-    _check("migrate ST", ST, (rows, 9, K, W))
+        raise ValueError(f"{name}: nx={nx} does not fit {W} columns")
+    _check(f"{name} ST", ST, (rows, F, K, W))
     out = torch.empty_like(ST)
     P = _build.MigrateParams(rows, K, W, nx, rows - 2, gmin, half_dt,
                              sub_dt, lim, cell, eps)
-    _build.call("lpe_migrate", ST, out, P)
+    _build.call(entry, ST, out, P)
     return out
+
+
+def _migrate_cuda(ST, **consts):
+    return _migrate_launch("lpe_migrate", 9, ST, **consts)
+
+
+def _migrate_h_cuda(ST10, **consts):
+    return _migrate_launch("lpe_migrate_h", 10, ST10, **consts)
 
 
 def _pair_sweep_cuda(M9, *, h, poly6, spiky, visc_lap, viscosity, min_d2,
@@ -675,6 +755,29 @@ def _force_cuda(D8, *, h, spiky, visc_lap, viscosity, min_d2, min_rho):
     P = _build.SweepParams(rows, K, W, h, h * h, 0.0, spiky, visc_lap,
                            viscosity, min_d2, min_rho, 0.0, 0.0)
     _build.call("lpe_force", D8, fx, fy, P)
+    return fx, fy
+
+
+def _density_h_cuda(D5):
+    from . import _build
+    rows, K, W = _grid_shape(D5, "density_h", 5)
+    _check("density_h D5", D5, (rows, 5, K, W))
+    rho = torch.empty((rows - 2, K, W), dtype=D5.dtype, device=D5.device)
+    P = _build.SweepParams(rows, K, W, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+                           0.0, 0.0, 0.0)
+    _build.call("lpe_density_h", D5, rho, P)
+    return rho
+
+
+def _force_h_cuda(D9, *, viscosity, min_d2, min_rho):
+    from . import _build
+    rows, K, W = _grid_shape(D9, "force_h", 9)
+    _check("force_h D9", D9, (rows, 9, K, W))
+    fx = torch.empty((rows - 2, K, W), dtype=D9.dtype, device=D9.device)
+    fy = torch.empty_like(fx)
+    P = _build.SweepParams(rows, K, W, 0.0, 0.0, 0.0, 0.0, 0.0, viscosity,
+                           min_d2, min_rho, 0.0, 0.0)
+    _build.call("lpe_force_h", D9, fx, fy, P)
     return fx, fy
 
 
@@ -731,7 +834,11 @@ coupling9 = KernelOp("coupling9", coupling9_plain, _coupling9_cuda)
 density = KernelOp("density", density_plain, _density_cuda)
 force = KernelOp("force", force_plain, _force_cuda)
 coupling = KernelOp("coupling", coupling_plain, _coupling_cuda)
-OPS = (migrate, pair_sweep, coupling9, density, force, coupling)
+migrate_h = KernelOp("migrate_h", migrate_h_plain, _migrate_h_cuda)
+density_h = KernelOp("density_h", density_h_plain, _density_h_cuda)
+force_h = KernelOp("force_h", force_h_plain, _force_h_cuda)
+OPS = (migrate, pair_sweep, coupling9, density, force, coupling, migrate_h,
+       density_h, force_h)
 
 
 def reset_counters():

@@ -2,9 +2,9 @@
 
     python3 -m lpe_tpu_torch.profile_tick [SCENE ...]
 
-SCENE is any of dam, dam_split, dam_scatter, simple_fluid, rigid, coupled,
-highlight, north, keplerian, ocean, galaxy_direct, galaxy (all by
-default).
+SCENE is any of dam, dam_split, dam_scatter, dam_mixed_h, simple_fluid,
+rigid, coupled, highlight, north, keplerian, ocean, galaxy_direct, galaxy
+(all by default).
 
 A block is 10 ticks: one ``build_run_fn(ticks=10)`` call for DAM_BREAK
 100k (the grid stays resident across the block), RIGID_STACKS 10k (the
@@ -18,7 +18,10 @@ SIMPLE_FLUID.
 DAM_BREAK 100k runs three times: in its default configuration (resident,
 the stacked kernel chain), with ``pair_backend="pallas"`` (resident, the
 split density, force and coupling kernels) and with ``residency="off"``,
-``pair_backend="pallas"`` (the per-tick scatter step). For each it prints
+``pair_backend="pallas"`` (the per-tick scatter step); ``dam_mixed_h`` is
+the same dam with its odd-indexed particles at smoothing length 0.04
+(chip_smoke.py phase 22's scene; mixed h takes the mixed-h split chain).
+For each it prints
 
 - ticks/s of 3 timed runs of 5 blocks each (host clock around
   synchronized blocks, after one warm-up block);
@@ -66,7 +69,9 @@ DAM_FLUID = {   # scene name -> FluidConfig fields of that dam configuration
     "dam": {},
     "dam_split": dict(pair_backend="pallas"),
     "dam_scatter": dict(residency="off", pair_backend="pallas"),
+    "dam_mixed_h": {},
 }
+MIXED_SMALL_H = 0.04   # dam_mixed_h: the odd-indexed particles' h
 RIGID_RANGES = ("rigid", "rigid.rows", "rigid.rebuild", "rigid.narrowphase")
 LIST_RANGES = ("rigid", "rigid.broadphase", "rigid.narrowphase",
                "rigid.compact", "rigid.velocity", "rigid.position")
@@ -81,6 +86,8 @@ CATALOG = {"keplerian": "KEPLERIAN_DISK", "ocean": "PLANETARY_OCEAN"}
 LABELS = {"dam": f"DAM_BREAK {DAM_N}",
           "dam_split": f"DAM_BREAK {DAM_N} split kernels",
           "dam_scatter": f"DAM_BREAK {DAM_N} scatter + split pair",
+          "dam_mixed_h": f"DAM_BREAK {DAM_N} mixed h (odd particles "
+                         f"{MIXED_SMALL_H})",
           "simple_fluid": "SIMPLE_FLUID",
           "rigid": f"RIGID_STACKS {RIGID_N}",
           "coupled": f"COUPLED_DAM {DAM_N} + 300",
@@ -98,6 +105,13 @@ def _scene(name, device):
     from .systems import build_run_fn, build_tick_fn
     if name in DAM_FLUID:
         sc = build_dam_break(DAM_N, device=device)
+        if name == "dam_mixed_h":
+            liq = sc.spec.liquid_slice
+            h = sc.state.bodies.h.clone()
+            h[liq.start + 1:liq.stop:2] = MIXED_SMALL_H
+            sc = dataclasses.replace(
+                sc, spec=dataclasses.replace(sc.spec, liquid_h_uniform=False),
+                state=sc.state.replace(bodies=sc.state.bodies.replace(h=h)))
         cfg = sc.cfg.replace(fluid=dataclasses.replace(sc.cfg.fluid,
                                                        **DAM_FLUID[name]))
         return sc, build_run_fn(sc.spec, cfg, ticks=BLOCK, device=device)

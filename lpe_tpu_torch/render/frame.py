@@ -18,10 +18,10 @@ gas_renderer.cpp:15-44):
 
 Arithmetic follows lpe_tpu's jitted frame: XLA multiplies by the float32
 reciprocal of a constant divisor (``_div``), so the port does too. Every
-deposit that adds floats is one ``index_put(accumulate=True)`` (a sorted,
-ordered scatter on the card, no float atomics), every painter's choice an
-integer ``scatter_reduce("amax")`` or max over entity order, so a frame
-repeats its bits from run to run on the card.
+deposit that adds floats is one ordered scatter-add
+(``core.numerics.scatter_add``: no float atomics, the same bits at any
+thread count), every painter's choice an integer ``scatter_reduce("amax")``
+or max over entity order, so a frame repeats its bits from run to run.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from torch.profiler import record_function
 
 from ..core.config import ScenarioSystemConfig
 from ..core.constants import MAX_POLY_VERTS, ShapeKind
-from ..core.numerics import sqrt
+from ..core.numerics import scatter_add, sqrt
 from ..scene import SceneSpec
 from ..state import SimState
 
@@ -93,7 +93,7 @@ def _box_blur5(img):
 def _deposit(idx, vals, n):
     """Sum ``vals`` into ``n`` slots at ``idx`` in index order."""
     out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
-    return out.index_put_((idx.long(),), vals, accumulate=True)
+    return scatter_add(out, idx.long(), vals)
 
 
 def _fluid_layer(state, spec, H, W, mpp, splat="auto"):

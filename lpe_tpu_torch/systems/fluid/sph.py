@@ -21,6 +21,16 @@ The PyTorch counterpart of the single-device paths of
   pair sweep) and couples each particle against every rigid in dense
   ``[NR, NL]`` PyTorch code (``sph.py:1249-1322``).
 
+Mixed per-particle smoothing lengths (``spec.liquid_h_uniform`` false;
+reference: fluid.cpp:293, each pair at h-bar = (h_i + h_j) / 2,
+fluid_kernels.metal:362-396): the grid's cell and 3x3 support are sized by
+the scene's largest h (``sph.py:225-227``), and each particle's h rides the
+grid as one more plane. Such a scene takes the split kernels' mixed-h
+variants whatever ``pair_backend`` says, as lpe_tpu sends it away from its
+pair sweep (``sph.py:264``): resident, migrate_h -> density_h -> EOS ->
+force_h -> second kick -> coupling (which reads no h); scatter, density_h +
+force_h.
+
 The same code runs on the CPU and on the GPU: only the kernel wrappers
 branch, on the device of their tensors.
 
@@ -32,8 +42,8 @@ differ from the JAX package's, and pair sums reassociate), plain gathers
 in place of one-hot-matmul permutes, and per-column instead of per-128-
 column-tile coupling masks.
 
-Not ported yet (raise ``NotImplementedError``): mixed per-particle h and
-the multi-device mesh. ``pair_backend="xla"`` is a ``ValueError``: the
+Not ported yet (raises ``NotImplementedError``): the multi-device mesh.
+``pair_backend="xla"`` is a ``ValueError``: the
 kernels' plain PyTorch versions, taken for CPU tensors, are the port's
 counterpart of the XLA pair passes.
 """
@@ -46,7 +56,7 @@ import torch
 from ...core import constants as C
 from ...core.config import ScenarioSystemConfig
 from ...core.constants import MAX_POLY_VERTS, ShapeKind
-from ...core.numerics import sqrt, true_div
+from ...core.numerics import scatter_add, sqrt, true_div
 from ...ops import sph_kernels as SK
 from ...scene import SceneSpec
 from ...state import SimState
@@ -149,10 +159,6 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         raise NotImplementedError(
             "the multi-device fluid path is not ported yet "
             "(ROADMAP.md Queue 1 item 7)")
-    if not spec.liquid_h_uniform:
-        raise NotImplementedError(
-            "mixed per-particle smoothing lengths are not ported yet "
-            "(ROADMAP.md Queue 1 item 5)")
     NL = spec.n_liquid
     K = grid_slots(fc.grid.max_per_cell, NL, device)
     if fc.residency not in ("auto", "on", "off"):
@@ -162,13 +168,19 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             f"pair_backend {fc.pair_backend!r}: the port has the pair sweep "
             "('auto' or 'sweep') and the split density and force kernels "
             "('pallas'); their plain PyTorch versions run on CPU tensors")
-    use_split = fc.pair_backend == "pallas"
+    # mixed h: the grid is sized by the largest h (h is immutable, so the
+    # reference's per-sub-step rescale, fluid.cpp:723-755, is this static
+    # bound), and the split chain's mixed-h variants run
+    var_h = not spec.liquid_h_uniform
+    use_split = fc.pair_backend == "pallas" or var_h
     if fc.grid.cell_size_factor < 1.0:
         raise ValueError("cell_size_factor must be >= 1.0 (3x3 scan needs "
                          "cells at least h wide to cover the r<h support)")
     L0 = spec.liquid_start
     NR = L0                       # solids + gas precede liquids in layout
     h = fc.grid.smoothing_length
+    if var_h:
+        h = max(h, float(spec.max_liquid_h))
     cell = fc.grid.cell_size_factor * h
     size = cfg.shared.universe_size_m
     gmin = -2                     # static grid: universe + 2-cell apron
@@ -194,9 +206,10 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     mig_kw = dict(nx=nx, half_dt=half_dt, sub_dt=sub_dt, lim=_RES_LIM,
                   cell=cell, eps=eps, gmin=gmin)
     density_kw = dict(h=h, poly6=POLY6)
-    force_kw = dict(h=h, spiky=SPIKY, visc_lap=VISC, viscosity=fc.viscosity,
-                    min_d2=nm.min_distance_threshold,
-                    min_rho=nm.min_density_threshold)
+    force_h_kw = dict(viscosity=fc.viscosity,
+                      min_d2=nm.min_distance_threshold,
+                      min_rho=nm.min_density_threshold)
+    force_kw = dict(force_h_kw, h=h, spiky=SPIKY, visc_lap=VISC)
     sweep_kw = dict(force_kw, poly6=POLY6, stiffness=fc.stiffness,
                     rest_density=fc.rest_density)
 
@@ -464,13 +477,17 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             hit = (ovy.to(f32) @ ovx.to(f32).T) > 0      # [rows, W]
             return ((counts > 0) & hit).to(torch.int32)
 
-        def _add_bigF(Fx, Fy, Tq, bigF):
-            """Accumulate the big-solid force sums onto their rigids."""
-            if not _NBIG:
-                return Fx, Fy, Tq
-            return (Fx.index_add(0, _big_arr, bigF[:, 0]),
-                    Fy.index_add(0, _big_arr, bigF[:, 1]),
-                    Tq.index_add(0, _big_arr, bigF[:, 2]))
+        def _rigid_forces(meta, PL, BF):
+            """The tick's per-rigid force sums (Fx, Fy, Tq): the big
+            solids' BF [NBIG, 3] (fx, fy, tq, summed over the sub-steps in
+            turn) on their rigids, plus the partials PL reduced onto theirs
+            (_couple_reduce)."""
+            F3 = PL.new_zeros((NR, 3))
+            if _NBIG:
+                F3 = scatter_add(F3, _big_arr, BF)
+            Fs = _couple_reduce(meta, PL)
+            return F3[:, 0] + Fs[:, 0], F3[:, 1] + Fs[:, 1], \
+                F3[:, 2] + Fs[:, 2]
 
         def _dense_couple(R, x1, y1, vx1, vy1, rho, pres, mass, ax, ay):
             """The scatter path's coupling: every particle against every
@@ -540,9 +557,12 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         y = b.pos[L0:L0 + NL, 1]
         idf = torch.arange(1, NL + 1, dtype=f32, device=x.device)  # 0=empty
         grid = build_grid(x, y, clamp=True)
-        D0 = to_dense(grid, dict(
+        flds = dict(
             x=x, y=y, vx=b.vel[L0:L0 + NL, 0], vy=b.vel[L0:L0 + NL, 1],
-            m=b.mass[L0:L0 + NL], id=idf, occ=torch.ones_like(x)))
+            m=b.mass[L0:L0 + NL], id=idf, occ=torch.ones_like(x))
+        if var_h:
+            flds["h"] = b.h[L0:L0 + NL]
+        D0 = to_dense(grid, flds)
         zd = torch.zeros_like(D0["x"])
         return dict(D0, hx=zd, hy=zd, ax=zd, ay=zd, rho=zd, p=zd)
 
@@ -563,12 +583,10 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             cpl = _cpl_mask(_tile_bounds_t(M9[:, SK.M9_OCC]), R)
             ST, pl, bigp = SK.coupling9(cpl, fld, bigtab, M9, rho, fx, fy,
                                         cn=_CN)
-            Fx, Fy, Tq = cr["Fx"], cr["Fy"], cr["Tq"]
+            BF = cr["BF"]
             if _NBIG:
-                bigF = bigp.sum((0, 1)).view(_NBIG, 3)
-                Fx, Fy, Tq = _add_bigF(Fx, Fy, Tq, bigF)
-            return dict(ST=ST, RHO=rho, PL=cr["PL"] + pl, Fx=Fx, Fy=Fy,
-                        Tq=Tq)
+                BF = BF + bigp.sum((0, 1)).view(_NBIG, 3)
+            return dict(ST=ST, RHO=rho, PL=cr["PL"] + pl, BF=BF)
         fxp, fyp = _pad_rows(fx), _pad_rows(fy)
         vx1 = M9[:, SK.M9_HX] + half_dt * fxp
         vy1 = M9[:, SK.M9_HY] + half_dt * fyp
@@ -583,22 +601,38 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         (kick, clamped drift, re-bin: the kernel the stacked chain uses,
         whose result is the JAX package's XLA ``_migrate``), density, EOS,
         force, second kick, coupling. The planes keep the previous
-        sub-step's rho and p until the density pass overwrites them."""
+        sub-step's rho and p until the density pass overwrites them. Mixed
+        h: the h plane rides migrate_h, and density_h and force_h take
+        it."""
         D = cr["D"]
-        M9 = SK.migrate(torch.stack(
-            [D["x"], D["y"], D["vx"], D["vy"], D["ax"], D["ay"], D["m"],
-             D["id"], D["occ"]], dim=1), **mig_kw)
-        x1, y1, vx, vy, m, occ, hx, hy, pid = M9.unbind(1)
-        rho = _pad_rows(SK.density(torch.stack([x1, y1, m, occ], dim=1),
-                                   **density_kw))
-        pres = _eos(rho)
-        fx, fy = SK.force(torch.stack([x1, y1, vx, vy, m, rho, pres, occ],
-                                      dim=1), **force_kw)
+        st = [D["x"], D["y"], D["vx"], D["vy"], D["ax"], D["ay"], D["m"],
+              D["id"], D["occ"]]
+        if var_h:
+            M = SK.migrate_h(torch.stack(st + [D["h"]], dim=1), **mig_kw)
+        else:
+            M = SK.migrate(torch.stack(st, dim=1), **mig_kw)
+        x1, y1, vx, vy, m, occ, hx, hy, pid = M.unbind(1)[:9]
+        if var_h:
+            hp = M[:, SK.M10_H]
+            rho = _pad_rows(SK.density_h(
+                torch.stack([x1, y1, m, occ, hp], dim=1)))
+            pres = _eos(rho)
+            fx, fy = SK.force_h(torch.stack(
+                [x1, y1, vx, vy, m, rho, pres, occ, hp], dim=1),
+                **force_h_kw)
+        else:
+            rho = _pad_rows(SK.density(torch.stack([x1, y1, m, occ], dim=1),
+                                       **density_kw))
+            pres = _eos(rho)
+            fx, fy = SK.force(torch.stack(
+                [x1, y1, vx, vy, m, rho, pres, occ], dim=1), **force_kw)
         ax1, ay1 = _pad_rows(fx), _pad_rows(fy)
         vx1 = hx + half_dt * ax1
         vy1 = hy + half_dt * ay1
         Dn = dict(x=x1, y=y1, vx=vx1, vy=vy1, ax=ax1, ay=ay1, m=m, id=pid,
                   occ=occ, hx=hx, hy=hy, rho=rho, p=pres)
+        if var_h:
+            Dn["h"] = hp
         if NR == 0:
             return dict(cr, D=Dn)
         cpl = _cpl_mask(_tile_bounds_t(occ), R)
@@ -606,12 +640,11 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             cpl, fld, bigtab, torch.stack(
                 [x1, y1, vx1, vy1, rho, pres, m, occ, ax1, ay1], dim=1),
             cn=_CN)
-        Fx, Fy, Tq = cr["Fx"], cr["Fy"], cr["Tq"]
+        BF = cr["BF"]
         if _NBIG:
-            Fx, Fy, Tq = _add_bigF(Fx, Fy, Tq,
-                                   bigp.sum((0, 1)).view(_NBIG, 3))
+            BF = BF + bigp.sum((0, 1)).view(_NBIG, 3)
         return dict(D=dict(Dn, x=x2, y=y2, vx=vx2, vy=vy2, ax=axf, ay=ayf),
-                    PL=cr["PL"] + pl, Fx=Fx, Fy=Fy, Tq=Tq)
+                    PL=cr["PL"] + pl, BF=BF)
 
     def _grid_tick(state: SimState, D):
         """One fluid tick on the resident grid: sub-steps + the per-tick
@@ -624,24 +657,19 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         if use_cpl:
             fld, bigtab, cmeta = _couple_field(R)
         zd = torch.zeros_like(D["x"])
-        nf = max(NR, 1)
-        cr = dict(Fx=zd.new_zeros(nf), Fy=zd.new_zeros(nf),
-                  Tq=zd.new_zeros(nf))
         if use_split:
-            cr["D"] = dict(D, ax=zd, ay=zd)
+            cr = dict(D=dict(D, ax=zd, ay=zd))
         else:
-            cr.update(RHO=None, ST=_stack(D))
+            cr = dict(RHO=None, ST=_stack(D))
         if use_cpl:
-            cr["PL"] = zd.new_zeros((rows, 3 * _S, W))
+            cr.update(PL=zd.new_zeros((rows, 3 * _S, W)),
+                      BF=zd.new_zeros((_NBIG, 3)))
         substep = _substep_split if use_split else _substep
         for _ in range(fc.num_sub_steps):
             cr = substep(cr, R, fld, bigtab)
-        Fx, Fy, Tq = cr["Fx"], cr["Fy"], cr["Tq"]
+        Fx = Fy = Tq = None                 # no rigid: nothing to write
         if use_cpl:
-            Fs = _couple_reduce(cmeta, cr["PL"])
-            Fx = Fx + Fs[:, 0]
-            Fy = Fy + Fs[:, 1]
-            Tq = Tq + Fs[:, 2]
+            Fx, Fy, Tq = _rigid_forces(cmeta, cr["PL"], cr["BF"])
         if use_split:
             return _finalize_rigid(state, Fx, Fy, Tq), cr["D"]
         STf = cr["ST"]
@@ -730,9 +758,9 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         """Per-tick scatter step (``lpe_tpu`` step, sph.py:1249-1322):
         every sub-step integrates in particle order, builds a fresh grid
         (a particle off the grid or beyond a cell's K slots gets no slot:
-        it takes the self density ``m*poly6*h^6`` and zero pair force, and
-        integrates ballistically), runs the pair pass on it and couples in
-        dense [NR, NL] code."""
+        it takes the self density ``m*poly6*h^6`` at its own h and zero pair
+        force, and integrates ballistically), runs the pair pass on it and
+        couples in dense [NR, NL] code."""
         b = state.bodies
         x = b.pos[L0:L0 + NL, 0]
         y = b.pos[L0:L0 + NL, 1]
@@ -744,6 +772,16 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         nf = max(NR, 1)
         Fx, Fy, Tq = x.new_zeros(nf), x.new_zeros(nf), x.new_zeros(nf)
         rho, pres = b.density[L0:L0 + NL], b.pressure[L0:L0 + NL]
+        if var_h:
+            # lpe_tpu's overflow self density at the particle's own h,
+            # sph.py:533, its powers multiplied as XLA's integer_pow does
+            hs = b.h[L0:L0 + NL]
+            h2 = hs * hs
+            h4 = h2 * h2
+            self_rho = mass * true_div(4.0, math.pi * (h4 * h4)) \
+                * (h2 * (h2 * h2))
+        else:
+            self_rho = mass * POLY6 * (h * h) ** 3
         for _ in range(fc.num_sub_steps):
             # kick-drift (metal:408-423)
             vhx = vx + half_dt * ax
@@ -751,9 +789,18 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             x = x + vhx * sub_dt
             y = y + vhy * sub_dt
             grid = build_grid(x, y, clamp=False)
-            D = to_dense(grid, dict(x=x, y=y, vx=vx, vy=vy, m=mass,
-                                    occ=torch.ones_like(x)))
-            if use_split:
+            flds = dict(x=x, y=y, vx=vx, vy=vy, m=mass,
+                        occ=torch.ones_like(x))
+            if var_h:
+                flds["h"] = hs
+            D = to_dense(grid, flds)
+            if var_h:
+                rho_d = _pad_rows(SK.density_h(torch.stack(
+                    [D["x"], D["y"], D["m"], D["occ"], D["h"]], dim=1)))
+                fx_d, fy_d = SK.force_h(torch.stack(
+                    [D["x"], D["y"], D["vx"], D["vy"], D["m"], rho_d,
+                     _eos(rho_d), D["occ"], D["h"]], dim=1), **force_h_kw)
+            elif use_split:
                 rho_d = _pad_rows(SK.density(torch.stack(
                     [D["x"], D["y"], D["m"], D["occ"]], dim=1), **density_kw))
                 fx_d, fy_d = SK.force(torch.stack(
@@ -769,8 +816,7 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                 rho_d = _pad_rows(rho_d)
             rho, ax, ay = from_dense(
                 grid, [rho_d, _pad_rows(fx_d), _pad_rows(fy_d)])
-            rho = torch.where(grid["pvalid"], rho,
-                              mass * POLY6 * (h * h) ** 3)
+            rho = torch.where(grid["pvalid"], rho, self_rho)
             pres = _eos(rho)
             # second kick (metal:428-441)
             vx = vhx + half_dt * ax
@@ -806,6 +852,7 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     step_resident.sweep_consts = sweep_kw
     step_resident.density_consts = density_kw
     step_resident.force_consts = force_kw
+    step_resident.force_h_consts = force_h_kw
     if use_cpl:
         def _coupling_inputs(state, M9):
             R = _rigid_proxies(state.bodies, NR, spec.max_rigid_verts)

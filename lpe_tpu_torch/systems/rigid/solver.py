@@ -8,26 +8,18 @@ segment r % NB, the segments applied in turn), 16 velocity and 8
 position iterations by default. ``fori_loop`` becomes a Python loop.
 
 lpe_tpu scatters the impulses with ``.at[ia].add(...).at[ib].add(...)``,
-which adds them one by one in row order. Here one ``index_put`` with
-``accumulate=True`` over the rows' side-A indices followed by their side-B
-indices does the same adds: on the CPU it runs them serially in that
-order, and on the card it sorts the indices stably and adds each body's
-values in sorted order, never with float atomics, so two runs give the
-same bits (``_scatter_add``).
+which adds them one by one in row order. Here one ordered scatter-add
+(``core.numerics.scatter_add``) over the rows' side-A indices followed by
+their side-B indices does the same adds, never with float atomics, so two
+runs give the same bits at any thread count.
 """
 from __future__ import annotations
 
 import torch
 
 from ...core.config import ContactSolverConfig, PositionSolverConfig
-from ...core.numerics import true_div
+from ...core.numerics import scatter_add, true_div
 from .geometry import _cross2, _dot2, _unit
-
-
-def _scatter_add(u, idx, vals):
-    """``u`` with ``vals[r]`` added to row ``idx[r]`` for each r in turn
-    (``u.at[idx].add(vals)``), without float atomics."""
-    return u.index_put((idx,), vals, accumulate=True)
 
 
 def _contact_degree(ia, ib, valid, n_bodies):
@@ -35,7 +27,7 @@ def _contact_degree(ia, ib, valid, n_bodies):
     least 1."""
     ones = valid.to(torch.float32)
     d = torch.zeros((n_bodies,), dtype=torch.float32, device=ia.device)
-    d = _scatter_add(d, torch.cat([ia, ib]), torch.cat([ones, ones]))
+    d = scatter_add(d, torch.cat([ia, ib]), torch.cat([ones, ones]))
     return torch.clamp(d, min=1.0)
 
 
@@ -163,7 +155,7 @@ def solve_velocity(pos, vel, omega, inv_m, inv_i, ia, ib, n, pt, valid,
         db = torch.cat([imp * g["im_b"][:, None],
                         ((g["rb_n"] * dln + g["rb_t"] * dlt)
                          * g["ii_b"])[:, None]], dim=1)
-        return _scatter_add(u, g["idx"], torch.cat([da, db]))
+        return scatter_add(u, g["idx"], torch.cat([da, db]))
 
     u = torch.cat([vel, omega[:, None]], dim=1)        # [S, 3]
     zero = torch.zeros((), dtype=u.dtype, device=u.device)
@@ -268,5 +260,5 @@ def solve_position(pos, angle, inv_m, inv_i, ia, ib, n, pt, pen, valid,
                             (-ra_x * scalar * g["ii_a"])[:, None]], dim=1)
             db = torch.cat([d * g["im_b"][:, None],
                             (rb_x * scalar * g["ii_b"])[:, None]], dim=1)
-            q = _scatter_add(q, g["idx"], torch.cat([da, db]))
+            q = scatter_add(q, g["idx"], torch.cat([da, db]))
     return q[:, :2], q[:, 2]

@@ -275,7 +275,8 @@ def test_cuda_kernels_match_plain():
     for u, v in zip(out_k[1:], out_p[1:]):
         torch.testing.assert_close(u, v, rtol=0, atol=1e-5)
     assert {op.name: op.launches for op in SK.OPS} == dict(
-        migrate=1, pair_sweep=1, coupling9=1, density=0, force=0, coupling=0)
+        migrate=1, pair_sweep=1, coupling9=1, density=0, force=0, coupling=0,
+        migrate_h=0, density_h=0, force_h=0)
 
 
 @pytest.mark.cuda
@@ -324,7 +325,8 @@ def test_cuda_split_kernels_match_plain():
         torch.testing.assert_close(u, v, rtol=0, atol=atol)
     assert float(out_p[6].abs().max()) > 1e-3
     assert {op.name: op.launches for op in SK.OPS} == dict(
-        migrate=0, pair_sweep=1, coupling9=0, density=1, force=1, coupling=1)
+        migrate=0, pair_sweep=1, coupling9=0, density=1, force=1, coupling=1,
+        migrate_h=0, density_h=0, force_h=0)
     with pytest.raises(ValueError, match="expected"):
         SK.density(d8, **dkw)
 
@@ -439,7 +441,8 @@ def test_cuda_migrate_and_force_on_a_multi_block_grid(K, full):
         assert torch.equal(_bits(u), _bits(v))
     assert float(fx.abs().max()) > 0
     assert {op.name: op.launches for op in SK.OPS} == dict(
-        migrate=1, pair_sweep=1, coupling9=0, density=1, force=1, coupling=0)
+        migrate=1, pair_sweep=1, coupling9=0, density=1, force=1, coupling=0,
+        migrate_h=0, density_h=0, force_h=0)
 
     assert torch.equal(_bits(SK.migrate(_plant_nan(st, SK.ST_OCC), **mig)),
                        _bits(m9))
@@ -611,7 +614,8 @@ def test_cuda_couplings_on_full_cells_at_k32(K2):
     for u, v in ((st9, ref9), (pl9, out[6]), (bigp9, out[7])):
         assert torch.equal(_bits(u), _bits(v))
     assert {op.name: op.launches for op in SK.OPS} == dict(
-        migrate=0, pair_sweep=0, coupling9=1, density=0, force=0, coupling=1)
+        migrate=0, pair_sweep=0, coupling9=1, density=0, force=0, coupling=1,
+        migrate_h=0, density_h=0, force_h=0)
     out_n = SK.coupling(cpl, fld, big, _plant_nan(d10, SK.D10_OCC), cn=cn)
     keep = live.clone()
     keep[0] = keep[-1] = True                         # apron rows: zero
@@ -620,6 +624,43 @@ def test_cuda_couplings_on_full_cells_at_k32(K2):
         assert bool(torch.isnan(u[~keep]).all())
     for u, v in zip(out_n[6:], out[6:]):
         assert torch.equal(_bits(u), _bits(v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 40])
+def test_cuda_mixed_h_kernels_match_plain(k):
+    """migrate_h, density_h and force_h against their plain versions on
+    the crowded multi-block grid with a seeded h of 0.04 or 0.05 a
+    particle: migrate_h to the bit (planes 0-8 the bits of migrate), the
+    pair passes at assert_sweep_close's limits; at K = 16 and at K = 40
+    (the 64-bit tier)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    st = _crowded_st(k)
+    rng = np.random.default_rng(7)
+    h = np.where(rng.random(st[:, 0].shape) < 0.5, 0.04, 0.05) \
+        .astype(np.float32) * (st[:, SK.ST_OCC] > 0)
+    t = torch.from_numpy(np.concatenate([st, h[:, None]], 1)).cuda()
+    mig = dict(MIG, nx=CROWD_NX)
+    SK.reset_counters()
+    m10 = SK.migrate_h(t, **mig)
+    assert torch.equal(_bits(m10), _bits(SK.migrate_h_plain(t, **mig)))
+    assert torch.equal(_bits(m10[:, :9]),
+                       _bits(SK.migrate(t[:, :9].contiguous(), **mig)))
+    x, y, vx, vy, m, occ, _, _, _, hp = m10.unbind(1)
+    inner = (occ[1:-1] > 0).cpu().numpy()
+    d5 = torch.stack([x, y, m, occ, hp], 1)
+    rho = SK.density_h(d5)
+    rho_p = torch.nn.functional.pad(rho, (0, 0, 0, 0, 1, 1))
+    pres = torch.clamp(FC.stiffness * (rho_p - FC.rest_density), min=0.0)
+    d9 = torch.stack([x, y, vx, vy, m, rho_p, pres, occ, hp], 1)
+    fkw = {k_: SWEEP[k_] for k_ in ("viscosity", "min_d2", "min_rho")}
+    got = [rho.cpu(), *(v.cpu() for v in SK.force_h(d9, **fkw))]
+    plain = [SK.density_h_plain(d5).cpu(),
+             *(v.cpu() for v in SK.force_h_plain(d9, **fkw))]
+    assert_sweep_close(got, plain, inner)
+    assert {op.name: op.launches for op in SK.OPS if op.launches} == dict(
+        migrate_h=1, migrate=1, density_h=1, force_h=1)
 
 
 def test_fluid_config_tree_is_the_one_tested():

@@ -261,8 +261,7 @@ def test_default_configuration_is_the_stacked_resident_path():
         return (hasattr(fl, "grid_build"),
                 {op.name: op.plain_calls for op in SK.OPS})
 
-    zero = dict.fromkeys(("migrate", "pair_sweep", "coupling9", "density",
-                          "force", "coupling"), 0)
+    zero = dict.fromkeys((op.name for op in SK.OPS), 0)
     assert calls() == (True, dict(zero, migrate=n, pair_sweep=n,
                                   coupling9=n))
     assert calls(pair_backend="pallas") == (

@@ -128,16 +128,18 @@ def test_out_of_slice_configurations_raise():
             make_fluid(sc.spec, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         make_fluid(sc.spec, sc.cfg, device="cpu", mesh=object())
+    # mixed per-particle h (ROADMAP Queue 1 item 5) is ported: the fluid
+    # system builds on a mixed-h spec
     spec = dataclasses.replace(sc.spec, liquid_h_uniform=False)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make_fluid(spec, sc.cfg, device="cpu")
+    assert callable(make_fluid(spec, sc.cfg, device="cpu"))
 
 
-@pytest.mark.parametrize("name", ["coordinates", "debug", "profiler"])
+@pytest.mark.parametrize("name", ["coordinates", "debug", "profiler",
+                                  "sph_numpy"])
 def test_host_helper_copies_equal_lpe_tpu(name):
-    """The port's copies of lpe_tpu's host helpers (lpe_tpu/__init__.py
-    imports jax, so the port keeps its own) equal the originals but for
-    their docstrings."""
+    """The port's copies of lpe_tpu's host helpers and of its float64 SPH
+    oracle (lpe_tpu/__init__.py imports jax, so the port keeps its own)
+    equal the originals but for their docstrings."""
     import ast
 
     def code(path):
@@ -151,7 +153,8 @@ def test_host_helper_copies_equal_lpe_tpu(name):
                 node.body = body[1:] or [ast.Pass()]
         return ast.dump(tree)
 
-    src = os.path.join(REPO, "lpe_tpu", "core", f"{name}.py")
-    port = os.path.join(REPO, "lpe_tpu_torch", "core", f"{name}.py")
+    sub = "oracle" if name == "sph_numpy" else "core"
+    src = os.path.join(REPO, "lpe_tpu", sub, f"{name}.py")
+    port = os.path.join(REPO, "lpe_tpu_torch", sub, f"{name}.py")
     assert code(port) == code(src)
     assert open(port).read() != "" and "jax" not in code(port)
