@@ -154,10 +154,34 @@ Phases (any failure raises and exits non-zero, printing no result):
      residencies (rho rtol 2e-4, positions atol 5e-6); f. all h 0.05 but
      one far particle's: one tick of the h chain against the uniform split
      chain (|dpos| <= 1e-4 m; whether to the bit is printed);
+  23. the multi-device fluid (lpe_tpu_torch.parallel), its row bands all
+     on this card (run_bands): a. at the dam's 40-tick grid padded to
+     4 x 69 rows, each of 4 bands' blocks through migrate with its row
+     offset equal to the bit to migrate_plain and to the whole grid's
+     rows, each band's launch timed beside the whole grid's, density and
+     force on the bands' blocks equal to the whole grid's; then
+     parallel.halo's density over the 4 bands equal to the whole grid's
+     density kernel to the bit; b. DAM_BREAK 100k, pair_backend="pallas",
+     in 2 and in 4 bands through build_sharded_run(ticks=10): 3 counted
+     blocks (migrate, density, force and coupling 10 D times a tick,
+     nothing else, no plain version; finite), the exchange's bytes and
+     copies a tick; ticks/s of the single-device split dam and of both
+     band counts timed in turn over 6 rounds of 2 blocks (the order
+     reversed every other round), each round's and the median, and each
+     round's single-device ticks/s over the bands'; no host sync in a
+     block, two blocks equal to the bit; one tick against
+     the single-device split tick (|dpos| <= 5e-4 m, |dvel| <= 5e-3 m/s,
+     lpe_tpu's halo tolerances; whether to the bit is printed); c. the
+     coupled dam in 4 bands from phase 10's settled split state, one
+     counted block against the single-device split block (the same
+     tolerances, the rigids' vel and omega too), the particles that
+     changed band in it counted (0 fails); d. dryrun_multichip(4) on the
+     card, its line printed;
   16. then print the bitwise twin checks as a JSON line, the K = 64
      kernels, the launches of each new path, the couplings on moving
      rigids, the gravity parts' times and bounds, the app line, the
-     mixed_h line, the kernels' JSON line, then the result line.
+     mixed_h line, the bands line, the kernels' JSON line, then the
+     result line.
 Every kernel's line carries its bound: the larger of the bytes it must
 move on these inputs (slot_bytes, coupling9_bytes, coupling_bytes: what
 an empty slot or a cell that does not couple holds is counted only where
@@ -170,6 +194,7 @@ from __future__ import annotations
 import json
 import math
 import subprocess
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -1689,7 +1714,8 @@ def run_coupled(dev, card):
     kernels held and timed there. Then, in the default configuration, one
     block under set_sync_debug_mode("error") and two blocks from one state
     equal to the bit in every state field. Returns (launches by path,
-    kernel results by name)."""
+    kernel results by name, the split configuration's (spec, cfg, settled
+    state) for phase 23)."""
     from lpe_tpu_torch.scenarios.bench_scenes import build_coupled_dam
     sc = build_coupled_dam(*COUPLED, device=dev)
     print(f"coupled dam {COUPLED}: {sc.spec.n_solid} solids "
@@ -1712,8 +1738,10 @@ def run_coupled(dev, card):
         if label == "default":
             kern = check_coupled_kernels(run, settled, "coupled dam")
             drun, dstate = run, settled
+        else:
+            split = (sc.spec, fluid_cfg(sc.cfg, **kw), settled)
     no_sync_and_bitwise(drun, dstate, "coupled dam")
-    return paths, kern
+    return paths, kern, split
 
 
 def run_north(dev, card):
@@ -2609,6 +2637,292 @@ def run_mixed_h(dev, card):
     return line, kern, launches
 
 
+# phase 23: the multi-device fluid, its row bands on one card
+BAND_COUNTS = (2, 4)
+BAND_MIGRATE_D = 4
+
+
+def band_migrate(dev, card):
+    """Phase 23a: at the dam's 40-tick grid (phase 3's ST), padded with
+    empty rows to a multiple of BAND_MIGRATE_D as the band path pads it,
+    each band's block (its rows and the neighbours' edge rows as apron
+    rows) through migrate with its row offset and the grid's ny: equal to
+    the bit to migrate_plain on the block and to the whole grid's migrate
+    in the band's rows (the padding rows take nothing). Each band's launch
+    timed beside the whole grid's. Density and force on the bands' blocks
+    of the migrated grid equal the whole grid's to the bit. Then
+    parallel.halo's density over the bands against the whole grid's
+    density kernel, to the bit."""
+    import torch
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    from lpe_tpu_torch.parallel import make_mesh
+    from lpe_tpu_torch.parallel.halo import make_halo_density
+    _, fl, state, ST = dam_sub_step(dev)
+    D = BAND_MIGRATE_D
+    rows, _, K, W = ST.shape
+    ny = rows - 2
+    band = -(-ny // D)
+    STp = torch.nn.functional.pad(ST, (0, 0, 0, 0, 0, 0, 0, band * D - ny)) \
+        .contiguous()
+    mig = fl.migrate_consts
+    whole = SK.migrate(ST, **mig)
+    wholep = torch.nn.functional.pad(whole, (0, 0, 0, 0, 0, 0, 0,
+                                             band * D - ny))
+    band_ms, crossed = [], 0
+    for i in range(D):
+        blk = STp[i * band:i * band + band + 2].contiguous()
+        kw = dict(mig, row_off=i * band, ny=ny)
+        got = SK.migrate(blk, **kw)
+        if not same_bits(got, SK.migrate.plain(blk, **kw)):
+            fail(f"band migrate: band {i} differs from migrate_plain")
+        if not same_bits(got[1:-1],
+                         wholep[i * band + 1:i * band + band + 1]):
+            fail(f"band migrate: band {i} differs from the whole grid's")
+        own = blk[1:-1, SK.ST_ID][blk[1:-1, SK.ST_OCC] > 0]
+        ids = got[1:-1, SK.M9_ID][got[1:-1, SK.M9_OCC] > 0]
+        crossed += int((~torch.isin(ids, own)).sum())
+        band_ms.append(cuda_ms(lambda: SK.migrate(blk, **kw)))
+    whole_ms = cuda_ms(lambda: SK.migrate(ST, **mig))
+    # density and force on the bands' blocks of the migrated grid, their
+    # apron rows the neighbours' edge rows (the force pass's rho too, as
+    # the third exchange gives them) = the whole grid's, to the bit
+    x1, y1, vx, vy, m, occ = wholep.unbind(1)[:6]
+    pad = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
+    rho = SK.density(torch.stack([x1, y1, m, occ], 1), **fl.density_consts)
+    rho_p = pad(rho)
+    D8 = torch.stack([x1, y1, vx, vy, m, rho_p, fl.eos(rho_p), occ], 1)
+    fxy = SK.force(D8, **fl.force_consts)
+    for i in range(D):
+        blk = D8[i * band:i * band + band + 2]
+        inner = slice(i * band, i * band + band)
+        rho_b = SK.density(blk[:, [0, 1, 4, 7]].contiguous(),
+                           **fl.density_consts)
+        if not same_bits(rho_b, rho[inner]):
+            fail(f"band density: band {i} differs from the whole grid's")
+        for u, v in zip(SK.force(blk.contiguous(), **fl.force_consts),
+                        fxy):
+            if not same_bits(u, v[inner]):
+                fail(f"band force: band {i} differs from the whole grid's")
+    # density over the bands (parallel.halo) = the whole grid's kernel
+    halo = make_halo_density(band * D, W - 2, K, fl.density_consts["h"],
+                             make_mesh(devices=[dev] * D))
+    split = [[v[1 + i * band:1 + (i + 1) * band] for i in range(D)]
+             for v in (x1, y1, m, occ)]
+    halo_rho = torch.cat(halo(*split))
+    rho[:, :, 0] = 0.0
+    rho[:, :, -1] = 0.0
+    if not same_bits(halo_rho, rho):
+        fail("parallel.halo density differs from the whole grid's kernel")
+    out = dict(bands=D, rows=rows, padded_rows=band * D + 2, K=K, cols=W,
+               whole_ms=whole_ms, band_ms=band_ms, band_ms_sum=sum(band_ms),
+               crossed_in=crossed, bitwise=True, halo_density_bitwise=True)
+    print(f"band migrate at the dam's 40-tick grid ({rows} rows, padded to "
+          f"{band * D + 2}, K = {K}, {W} columns) in {D} bands: each band "
+          f"equal to the bit to migrate_plain and to the whole grid's rows "
+          f"(density and force on the bands' blocks too); "
+          f"{crossed} particles taken in from a neighbour's rows; whole grid "
+          f"{whole_ms:.4f} ms, bands " + ", ".join(f"{t:.4f}" for t in
+                                                  band_ms) +
+          f" ms (sum {sum(band_ms):.4f}); halo density over {D} bands equal "
+          f"to the whole grid's density kernel to the bit; on {card}",
+          flush=True)
+    return out
+
+
+def timed_blocks(run, state, blocks=3):
+    """``blocks`` blocks of ``run`` from ``state`` on the host clock
+    around synchronized blocks, every kernel counter set to 0 just before
+    and read just after: (state, ticks/s, launches by name, plain calls by
+    name)."""
+    import torch
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    ops = (*SK.OPS, *RK.OPS)
+    torch.cuda.synchronize()
+    SK.reset_counters()
+    RK.reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(blocks):
+        state = run(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return (state, blocks * BLOCK / dt,
+            {op.name: op.launches for op in ops if op.launches},
+            {op.name: op.plain_calls for op in ops if op.plain_calls})
+
+
+def band_gaps(a, b, spec):
+    """max |dpos| and |dvel| over the active bodies of two states, the
+    rigids' max |dvel| and |domega|, and whether the liquid is equal to
+    the bit."""
+    act = a.bodies.active
+    nr = spec.liquid_start
+    liq = spec.liquid_slice
+    return dict(
+        dpos=max_err(a.bodies.pos[act], b.bodies.pos[act]),
+        dvel=max_err(a.bodies.vel[act], b.bodies.vel[act]),
+        rigid_dvel=max_err(a.bodies.vel[:nr], b.bodies.vel[:nr]) if nr else 0,
+        rigid_domega=max_err(a.bodies.omega[:nr], b.bodies.omega[:nr])
+        if nr else 0,
+        liquid_bitwise=all(same_bits(getattr(a.bodies, f)[liq],
+                                     getattr(b.bodies, f)[liq])
+                           for f in ("pos", "vel", "density", "pressure")))
+
+
+def hold_bands(label, g):
+    """lpe_tpu's halo tolerances (tests/test_halo.py:96-100) on band_gaps."""
+    if not (g["dpos"] <= 5e-4 and g["dvel"] <= 5e-3
+            and g["rigid_dvel"] <= 5e-3 and g["rigid_domega"] <= 5e-3):
+        fail(f"{label}: the band path differs from the single device: {g}")
+
+
+def want_band_launches(D, ticks):
+    return {k: ticks * SUBSTEPS * D
+            for k in ("migrate", "density", "force", "coupling")}
+
+
+def band_dam(dev, card, D):
+    """Phase 23b: DAM_BREAK 100k with pair_backend="pallas" in D row bands
+    on ``dev`` through build_sharded_run(ticks=10): a warm-up block, then 3
+    counted blocks (migrate, density, force and coupling 10 D times a tick,
+    nothing else, no plain version; finite); the exchange's bytes and
+    copies a tick; no host sync in a block, two blocks from one state equal
+    to the bit; one tick against the single-device split tick. Returns
+    (the line's dict, (the block, its state)) for band_tps."""
+    import torch
+    from lpe_tpu_torch.parallel import make_mesh
+    from lpe_tpu_torch.parallel.sharded import (build_sharded_run,
+                                                 build_sharded_tick)
+    from lpe_tpu_torch.scenarios.bench_scenes import build_dam_break
+    from lpe_tpu_torch.systems import build_tick_fn
+    label = f"dam {DAM_N} split in {D} bands"
+    sc = build_dam_break(DAM_N, device=dev)
+    sc.cfg = fluid_cfg(sc.cfg, pair_backend="pallas")
+    mesh = make_mesh(devices=[dev] * D)
+    run = build_sharded_run(sc, mesh, ticks=BLOCK)
+    fl = run.systems["fluid"]
+    if getattr(fl, "mesh", None) is not mesh:
+        fail(f"{label}: build_sharded_run did not take the band path")
+    state = run(sc.state)                       # warm-up block
+    fl.halo_stats.update(bytes=0, copies=0)
+    blocks = 3
+    state, _, launches, plain = timed_blocks(run, state, blocks)
+    ticks = blocks * BLOCK
+    if launches != want_band_launches(D, ticks) or plain:
+        fail(f"{label}: launches {launches}, expected "
+             f"{want_band_launches(D, ticks)}; plain calls {plain}")
+    if not bool(torch.isfinite(state.bodies.pos).all()) or \
+            not bool(torch.isfinite(state.bodies.vel).all()):
+        fail(f"{label}: non-finite state")
+    xbytes = fl.halo_stats["bytes"] / ticks
+    xcopies = fl.halo_stats["copies"] / ticks
+    no_sync_and_bitwise(run, state, label)
+    g = band_gaps(build_sharded_tick(sc, mesh)(state),
+                  build_tick_fn(sc.spec, sc.cfg, device=dev)(state), sc.spec)
+    hold_bands(label, g)
+    print(f"{label}: on {card}; launches {launches} over {blocks} blocks of "
+          f"{BLOCK}; exchange {xbytes:.0f} bytes and {xcopies:.0f} copies a "
+          f"tick; one tick against the single-device split tick: max |dpos| "
+          f"{g['dpos']:.3e} m, |dvel| {g['dvel']:.3e} m/s, liquid bitwise "
+          f"{g['liquid_bitwise']}", flush=True)
+    return dict(launches=launches, exchange_bytes_per_tick=xbytes,
+                exchange_copies_per_tick=xcopies, one_tick=g), (run, state)
+
+
+def band_tps(card, runs, rounds=6, blocks=2):
+    """Phase 23b's times: ``runs`` (label -> (block, state)) timed in turn,
+    ``blocks`` synchronized blocks each on the host clock, over ``rounds``
+    rounds with the order reversed every other round, so that a drift of
+    the card or the host falls on every label alike. Returns label -> the
+    rounds' ticks/s, their median, and (for the bands) each round's
+    single-device ticks/s over the label's."""
+    order = list(runs)
+    tps = {k: [] for k in order}
+    for r in range(rounds):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            run, state = runs[k]
+            state, t, _, _ = timed_blocks(run, state, blocks)
+            runs[k] = (run, state)
+            tps[k].append(t)
+    single = tps[order[0]]
+    out = {}
+    for k in order:
+        line = dict(rounds=tps[k], median=statistics.median(tps[k]))
+        if k != order[0]:
+            line["slowdown"] = [a / b for a, b in zip(single, tps[k])]
+        out[k] = line
+        extra = "" if k == order[0] else (
+            "; single device over it " + ", ".join(
+                f"{x:.3f}" for x in line["slowdown"]))
+        print(f"dam {DAM_N} split, {k}: ticks/s over {rounds} rounds of "
+              f"{blocks} blocks of {BLOCK}, timed in turn (host clock, "
+              f"synchronized) on {card}: " +
+              ", ".join(f"{x:.2f}" for x in tps[k]) +
+              f" (median {line['median']:.2f}){extra}", flush=True)
+    return out
+
+
+def band_coupled(dev, card, coupled):
+    """Phase 23c: the coupled dam (phase 10's settled split state) in
+    BAND_MIGRATE_D bands: one 10-tick block against the single-device
+    split block, counted; the liquid particles that changed band in it."""
+    import torch
+    from lpe_tpu_torch.parallel import make_mesh
+    from lpe_tpu_torch.parallel.sharded import build_sharded_run
+    from lpe_tpu_torch.scene import Scene
+    from lpe_tpu_torch.systems import build_run_fn
+    D = BAND_MIGRATE_D
+    spec, cfg, settled = coupled
+    label = f"coupled dam {COUPLED} split in {D} bands"
+    mesh = make_mesh(devices=[dev] * D)
+    run = build_sharded_run(Scene(state=settled, spec=spec, cfg=cfg), mesh,
+                            ticks=BLOCK)
+    fl = run.systems["fluid"]
+    got, tps, launches, plain = timed_blocks(run, settled, 1)
+    if launches != want_band_launches(D, BLOCK) or plain:
+        fail(f"{label}: launches {launches}, expected "
+             f"{want_band_launches(D, BLOCK)}; plain calls {plain}")
+    for f in ("pos", "vel", "angle", "omega"):
+        if not bool(torch.isfinite(getattr(got.bodies, f)).all()):
+            fail(f"{label}: non-finite {f}")
+    want = build_run_fn(spec, cfg, ticks=BLOCK, device=dev)(settled)
+    g = band_gaps(got, want, spec)
+    liq = spec.liquid_slice
+    crossings = int((fl.band_of(settled.bodies.pos[liq, 1])
+                     != fl.band_of(got.bodies.pos[liq, 1])).sum())
+    print(f"{label}: one block of {BLOCK} ticks ({tps:.2f} ticks/s) on "
+          f"{card}; launches {launches}; against the single-device split "
+          f"block: max |dpos| {g['dpos']:.3e} m, |dvel| {g['dvel']:.3e} m/s,"
+          f" rigids |dvel| {g['rigid_dvel']:.3e}, |domega| "
+          f"{g['rigid_domega']:.3e}, liquid bitwise {g['liquid_bitwise']}; "
+          f"{crossings} particles changed band", flush=True)
+    hold_bands(label, g)
+    if crossings == 0:
+        fail(f"{label}: no particle crossed a band")
+    return dict(ticks_per_s=tps, launches=launches, block=g,
+                crossings=crossings)
+
+
+def run_bands(dev, card, coupled):
+    """Phase 23: the multi-device fluid's row bands on one card (a.-d.)."""
+    from lpe_tpu_torch.parallel.dryrun import dryrun_multichip
+    from lpe_tpu_torch.scenarios.bench_scenes import build_dam_break
+    from lpe_tpu_torch.systems import build_run_fn
+    t0 = time.perf_counter()
+    out = dict(card=card, migrate=band_migrate(dev, card))
+    sc = build_dam_break(DAM_N, device=dev)
+    cfg = fluid_cfg(sc.cfg, pair_backend="pallas")
+    run = build_run_fn(sc.spec, cfg, ticks=BLOCK, device=dev)
+    runs = {"single device": (run, run(sc.state))}
+    for D in BAND_COUNTS:
+        out[f"dam_d{D}"], runs[f"{D} bands"] = band_dam(dev, card, D)
+    out["dam_ticks_per_s"] = band_tps(card, runs)
+    out[f"coupled_d{BAND_MIGRATE_D}"] = band_coupled(dev, card, coupled)
+    out["dryrun"] = dryrun_multichip(4, device=dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2694,7 +3008,7 @@ def main(argv=None) -> int:
         errs[name], times[name], bounds[name] = e, t, bnd
 
     # 10.-15. the scenes of the rigid list pipeline, and the north star
-    paths, coupled = run_coupled(dev, card)
+    paths, coupled, coupled_split = run_coupled(dev, card)
     paths.update(run_scenes(dev, card))
     paths["north"], north = run_north(dev, card)
 
@@ -2713,7 +3027,13 @@ def main(argv=None) -> int:
         errs[name], times[name], bounds[name] = e, t, bnd
         launches[name] = hl[name]
 
-    # 16. results (after 17-20): no single PyTorch call computes any of
+    # 23. the multi-device fluid: its row bands on one card
+    bands = run_bands(dev, card, coupled_split)
+    for key in (*(f"dam_d{D}" for D in BAND_COUNTS),
+                f"coupled_d{BAND_MIGRATE_D}"):
+        paths[f"bands_{key}"] = bands[key]["launches"]
+
+    # 16. results (after 17-23): no single PyTorch call computes any of
     # these kernels
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], max_abs_err=errs[name],
@@ -2737,6 +3057,7 @@ def main(argv=None) -> int:
         flush=True)
     print(json.dumps({"app": app}), flush=True)
     print(json.dumps({"mixed_h": mixed}), flush=True)
+    print(json.dumps({"bands": bands}), flush=True)
     print(json.dumps({"coupling_oracle": {
         "spread_max": max(c["spread"] for c in COUPLE_ORACLE),
         "worst_err_over_limit": max(c["partials_err"] / c["limit"]

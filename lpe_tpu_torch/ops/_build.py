@@ -38,8 +38,8 @@ _f, _i = ctypes.c_float, ctypes.c_int
 
 class MigrateParams(ctypes.Structure):
     _fields_ = [("rows", _i), ("K", _i), ("W", _i), ("nx", _i), ("ny", _i),
-                ("gmin", _i), ("half_dt", _f), ("sub_dt", _f), ("lim", _f),
-                ("cell", _f), ("eps", _f)]
+                ("gmin", _i), ("row_off", _i), ("half_dt", _f),
+                ("sub_dt", _f), ("lim", _f), ("cell", _f), ("eps", _f)]
 
 
 class SweepParams(ctypes.Structure):
@@ -208,9 +208,14 @@ def call(name, *args):
     params struct. Raises on a refused launch."""
     lib = library()
     *tensors, params = args
-    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    err = getattr(lib, name)(*[t.data_ptr() for t in tensors], stream,
-                             ctypes.byref(params))
+    dev = tensors[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in tensors]
+    if dev.index == torch.cuda.current_device():
+        err = getattr(lib, name)(*ptrs, stream, ctypes.byref(params))
+    else:                   # a launch goes to its stream's device
+        with torch.cuda.device(dev):
+            err = getattr(lib, name)(*ptrs, stream, ctypes.byref(params))
     if err != 0:
         msg = lib.lpe_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

@@ -23,8 +23,11 @@ constexpr int BIG_BLOCK_COLS = 32;
 
 // The three parameter structs mirror the ctypes Structures of
 // lpe_tpu_torch/ops/_build.py field for field.
+// ny and row_off: the whole grid's interior rows and the global row of the
+// block's first interior row; a block of a row band (rows - 2 rows from
+// row_off) clamps a particle's cell row on the whole grid
 struct MigrateParams {
-  int rows, K, W, nx, ny, gmin;
+  int rows, K, W, nx, ny, gmin, row_off;
   float half_dt, sub_dt, lim, cell, eps;
 };
 
@@ -58,6 +61,28 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
 __device__ __forceinline__ float eos(float rho, float stiffness,
                                      float rest_density) {
   return fmaxf(stiffness * (rho - rest_density), 0.f);
+}
+
+// The devices a process may launch on: the dynamic shared memory limit of
+// a kernel is set per device.
+constexpr int MAX_DEVICES = 64;
+
+// Allow `kernel` smem bytes of dynamic shared memory on the current
+// device, once per device and larger size (`set` holds the size allowed
+// so far on each device).
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem, int (&set)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem > set[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    set[dev] = smem;
+  }
+  return cudaSuccess;
 }
 
 #define LPE_EXPORT extern "C" __attribute__((visibility("default")))

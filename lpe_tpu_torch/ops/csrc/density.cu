@@ -208,14 +208,10 @@ cudaError_t launch_density(const float* d4, float* rho, cudaStream_t stream,
                            const SweepParams* P) {
   using T = DensityTier<Mask>;
   const int smem = density_smem<Mask, VAR_H>(P->K);
-  static int smem_set = 0;      // the largest dynamic size allowed so far
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        split_density_kernel<Mask, VAR_H>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_set = smem;
-  }
+  static int smem_set[MAX_DEVICES] = {};   // allowed so far, by device
+  const cudaError_t err =
+      allow_smem(split_density_kernel<Mask, VAR_H>, smem, smem_set);
+  if (err != cudaSuccess) return err;
   const int ny = P->rows - 2;
   const dim3 grid((P->W + T::TILE - 1) / T::TILE,
                   (ny + DN_BAND - 1) / DN_BAND);

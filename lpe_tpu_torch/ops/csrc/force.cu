@@ -188,9 +188,9 @@ __global__ void __launch_bounds__(FC_THREADS)
       const bool crho_ok = crho >= P.min_rho;
       float fxa = 0.f, fya = 0.f;
       for (int dy = -1; dy <= 1; ++dy) {
-        const int rowi = f + dy;
-        if (rowi < 1 || rowi > ny) continue;   // aprons hold no particles
-        const int rn = fc_ring(rowi);
+        // apron rows are neighbours too: a row band's hold the
+        // neighbour bands' edge rows (the whole grid's are empty)
+        const int rn = fc_ring(f + dy);
         const int* sn = start + rn * (FC_WIN + 1);
         const StagedRow r = {X(rn, 0), X(rn, 1), X(rn, 2), X(rn, 3),
                              X(rn, 4), X(rn, 5), X(rn, 6), sn,
@@ -225,14 +225,10 @@ cudaError_t launch_force(const float* d8, float* fx, float* fy,
                          cudaStream_t stream, const SweepParams* P) {
   using T = ForceTier<Mask>;
   const int smem = force_smem<Mask, VAR_H>(P->K);
-  static int smem_set = 0;      // the largest dynamic size allowed so far
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        split_force_kernel<Mask, VAR_H>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_set = smem;
-  }
+  static int smem_set[MAX_DEVICES] = {};   // allowed so far, by device
+  const cudaError_t err =
+      allow_smem(split_force_kernel<Mask, VAR_H>, smem, smem_set);
+  if (err != cudaSuccess) return err;
   const int ny = P->rows - 2;
   const dim3 grid((P->W + T::TILE - 1) / T::TILE,
                   (ny + FC_BAND - 1) / FC_BAND);

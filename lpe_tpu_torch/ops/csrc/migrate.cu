@@ -9,6 +9,18 @@
 // a tenth plane, the particles' smoothing lengths, rides the permutation
 // (lpe_tpu/systems/fluid/sph.py:632, h among the migrated fields).
 //
+// A row band's block (the multi-device fluid, lpe_tpu sph.py _migrate with
+// row_off, :666-668) holds rows - 2 interior rows of a grid of P.ny rows,
+// from global row P.row_off (the last band's may run past the grid's rows:
+// they take no particle), and its apron rows hold the neighbour bands' edge
+// rows: their ST planes, before the kick. Every occupied source slot is
+// kicked, drifted and ranked, apron rows included, so a particle crossing
+// into the band from a halo row is a candidate as on the whole grid; its
+// kick and drift are the elementwise arithmetic its own band does, so the
+// same bits. A cell row clamps to the whole grid, then shifts by row_off;
+// apron rows of the output stay 0. The whole grid is row_off 0, P.ny =
+// rows - 2.
+//
 // What bounds it on the H100: bytes, and most of them the dense M9 write.
 // At DAM_BREAK 100k (275 rows, K = 16, 288 columns, 8% of the slots live)
 // the function needs the ST occupancy plane (5.1 MB), the live slots'
@@ -153,11 +165,12 @@ __global__ void __launch_bounds__(MG_THREADS)
       const float y1 =
           g[ST_Y * plane] + clampf(hy * P.sub_dt, -P.lim, P.lim);
       // clip to the grid, then walk at most one cell from the stored cell
-      // (sph.py _migrate; the eps sits inside the floor)
+      // (sph.py _migrate; the eps sits inside the floor); a band's block
+      // clips the row on the whole grid and shifts it by its row_off
       int gx = (int)floorf((x1 + P.eps) / P.cell) - P.gmin;
       int gy = (int)floorf((y1 + P.eps) / P.cell) - P.gmin;
       gx = clampi(clampi(gx, 0, P.nx - 1), c - 2, c) + 1;
-      gy = clampi(clampi(gy, 0, P.ny - 1), q - 2, q) + 1;
+      gy = clampi(clampi(gy, 0, P.ny - 1) - P.row_off, q - 2, q) + 1;
       X(rq, 0)[e] = x1;
       X(rq, 1)[e] = y1;
       X(rq, 2)[e] = vx;
@@ -178,7 +191,8 @@ __global__ void __launch_bounds__(MG_THREADS)
     const int p = q - 1;
     for (int i = tid; i < MG_WIN; i += nthr) mask[i] = 0;   // row q's read
     if (p >= p0) {
-      const bool prow = p >= 1 && p <= P.ny;   // apron rows take nothing
+      // apron (or halo) rows take nothing
+      const bool prow = p >= 1 && p <= P.rows - 2;
       int any = 0;
       for (int dy = 0; dy < 3; ++dy)
         any += start[mg_ring(p - 1 + dy) * (MG_WIN + 1) + MG_WIN];
@@ -236,14 +250,9 @@ cudaError_t launch_migrate(const float* st, float* m9, cudaStream_t stream,
                            const MigrateParams* P) {
   using T = MigrateTier<Mask>;
   const int smem = migrate_smem<Mask, F>(P->K);
-  static int smem_set = 0;      // the largest dynamic size allowed so far
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        migrate_kernel<Mask, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    smem_set = smem;
-  }
+  static int smem_set[MAX_DEVICES] = {};   // allowed so far, by device
+  const cudaError_t err = allow_smem(migrate_kernel<Mask, F>, smem, smem_set);
+  if (err != cudaSuccess) return err;
   const dim3 grid((P->W + T::TILE - 1) / T::TILE,
                   (P->rows + MG_BAND - 1) / MG_BAND);
   migrate_kernel<Mask, F><<<grid, MG_THREADS, smem, stream>>>(st, m9, *P);
@@ -258,7 +267,7 @@ template <int F>
 int migrate_entry(const float* st, float* m, cudaStream_t stream,
                   const MigrateParams* P) {
   if (P->K < 1 || P->K > 64 || P->rows < 3 || P->W < 1 || P->nx < 1 ||
-      P->nx > P->W - 2 || P->ny != P->rows - 2)
+      P->nx > P->W - 2 || P->row_off < 0 || P->ny < P->rows - 2)
     return (int)cudaErrorInvalidValue;
   return (int)(P->K <= 32
                    ? launch_migrate<unsigned, F>(st, m, stream, P)

@@ -241,14 +241,10 @@ cudaError_t launch_grid(const float* gp, const float* gc, const float* gs,
                         float* pens, bool* cval, float* pa, float* pb,
                         cudaStream_t stream, const NarrowGridParams* P) {
   const int smem = ng_body_bytes(V) * P->nsb;
-  static int smem_set = 0;      // the largest dynamic size allowed so far
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        narrowphase_grid_kernel<V>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_set = smem;
-  }
+  static int smem_set[MAX_DEVICES] = {};   // allowed so far, by device
+  const cudaError_t err =
+      allow_smem(narrowphase_grid_kernel<V>, smem, smem_set);
+  if (err != cudaSuccess) return err;
   // threads: the rows of the largest pass, in whole warps
   int rows = 0;
   for (int q = 0, cb = 0; q < P->npass; cb = P->pass_end[q], ++q) {

@@ -246,14 +246,9 @@ cudaError_t launch_sweep(const float* m9, float* rho, float* fx, float* fy,
                          cudaStream_t stream, const SweepParams* P) {
   using T = SweepTier<Mask>;
   const int smem = sweep_smem<Mask>(P->K);
-  static int smem_set = 0;      // the largest dynamic size allowed so far
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sweep_kernel<Mask>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    smem_set = smem;
-  }
+  static int smem_set[MAX_DEVICES] = {};   // allowed so far, by device
+  const cudaError_t err = allow_smem(sweep_kernel<Mask>, smem, smem_set);
+  if (err != cudaSuccess) return err;
   const int ny = P->rows - 2;
   const dim3 grid((P->W + T::TILE - 1) / T::TILE,
                   (ny + SW_BAND - 1) / SW_BAND);

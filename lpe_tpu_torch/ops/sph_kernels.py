@@ -89,7 +89,8 @@ class KernelOp:
 # migrate: kick + drift + cell migration (replaces make_migrate_ring)
 # ---------------------------------------------------------------------------
 
-def migrate_plain(ST, *, nx, half_dt, sub_dt, lim, cell, eps, gmin):
+def migrate_plain(ST, *, nx, half_dt, sub_dt, lim, cell, eps, gmin,
+                  row_off=0, ny=None):
     """Half kick ``h = v + half_dt*a``, drift ``x1 = x + clip(h*sub_dt,
     +-lim)``, then re-bin: each occupied slot targets the cell of its new
     position, clamped to the grid and to +-1 of its current cell (the
@@ -97,9 +98,26 @@ def migrate_plain(ST, *, nx, half_dt, sub_dt, lim, cell, eps, gmin):
     takes its candidates in (dy, dx, slot) order over its 3x3 source
     cells and keeps the first K; the rest are dropped. Returns M9; a tenth
     plane of ST (h, ``migrate_h_plain``) rides the permutation into a
-    tenth plane of the output."""
+    tenth plane of the output.
+
+    A row band's block (``row_off``, ``ny``; lpe_tpu ``_migrate(...,
+    row_off)``, sph.py:666-668) holds ``rows - 2`` interior rows of a grid
+    of ``ny`` rows, from global row ``row_off`` (the last band's may run
+    past the grid's rows: they take no particle), and its apron rows hold the
+    neighbour bands' edge rows (their ST planes, before the kick). Every
+    occupied slot is kicked, drifted and ranked, apron rows included, so a
+    particle crossing into the band from a halo row is a candidate as on
+    the whole grid; its kick and drift are the elementwise arithmetic its
+    own band does, so they give the same bits. A cell row clamps to the
+    whole grid, then shifts by ``row_off``; only interior rows take
+    particles. The defaults are the whole grid: 0 and ``rows - 2``."""
     rows, F, K, W = ST.shape
-    ny = rows - 2
+    nyl = rows - 2
+    if ny is None:
+        ny = nyl
+    if row_off < 0 or ny < nyl:
+        raise ValueError(f"migrate: a block of {nyl} rows from row "
+                         f"{row_off} is not in a grid of {ny}")
     x, y, vx, vy, ax, ay, m, pid, occ = ST.unbind(1)[:9]
     hx = vx + half_dt * ax
     hy = vy + half_dt * ay
@@ -112,10 +130,10 @@ def migrate_plain(ST, *, nx, half_dt, sub_dt, lim, cell, eps, gmin):
     gx = torch.clamp(torch.floor(true_div(x1 + eps, cell)).to(i32) - gmin,
                      0, nx - 1)
     gy = torch.clamp(torch.floor(true_div(y1 + eps, cell)).to(i32) - gmin,
-                     0, ny - 1)
+                     0, ny - 1) - row_off
     tgx = torch.minimum(torch.maximum(gx, colg - 2), colg) + 1
     tgy = torch.minimum(torch.maximum(gy, rowg - 2), rowg) + 1
-    live = (occ > 0) & (tgy >= 1) & (tgy <= ny) & (tgx >= 1) & (tgx <= nx)
+    live = (occ > 0) & (tgy >= 1) & (tgy <= nyl) & (tgx >= 1) & (tgx <= nx)
     # candidate order inside a target cell: (dy, dx, slot)
     kk = torch.arange(K, device=dev, dtype=torch.int64).view(1, K, 1)
     off = ((rowg - tgy + 1) * 3 + (colg - tgx + 1)).to(torch.int64)
@@ -697,15 +715,19 @@ def _grid_shape(M, what, F=9):
 
 
 def _migrate_launch(entry, F, ST, *, nx, half_dt, sub_dt, lim, cell, eps,
-                    gmin):
+                    gmin, row_off=0, ny=None):
     from . import _build
     name = entry.removeprefix("lpe_")
     rows, K, W = _grid_shape(ST, name, F)
+    ny = rows - 2 if ny is None else ny
     if not (1 <= nx <= W - 2):
         raise ValueError(f"{name}: nx={nx} does not fit {W} columns")
+    if row_off < 0 or ny < rows - 2:
+        raise ValueError(f"{name}: a block of {rows - 2} rows from row "
+                         f"{row_off} is not in a grid of {ny}")
     _check(f"{name} ST", ST, (rows, F, K, W))
     out = torch.empty_like(ST)
-    P = _build.MigrateParams(rows, K, W, nx, rows - 2, gmin, half_dt,
+    P = _build.MigrateParams(rows, K, W, nx, ny, gmin, row_off, half_dt,
                              sub_dt, lim, cell, eps)
     _build.call(entry, ST, out, P)
     return out

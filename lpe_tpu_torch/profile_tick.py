@@ -2,9 +2,9 @@
 
     python3 -m lpe_tpu_torch.profile_tick [SCENE ...]
 
-SCENE is any of dam, dam_split, dam_scatter, dam_mixed_h, simple_fluid,
-rigid, coupled, highlight, north, keplerian, ocean, galaxy_direct, galaxy
-(all by default).
+SCENE is any of dam, dam_split, dam_scatter, dam_mixed_h, dam_bands2,
+dam_bands4, simple_fluid, rigid, coupled, highlight, north, keplerian,
+ocean, galaxy_direct, galaxy (all by default).
 
 A block is 10 ticks: one ``build_run_fn(ticks=10)`` call for DAM_BREAK
 100k (the grid stays resident across the block), RIGID_STACKS 10k (the
@@ -20,7 +20,12 @@ the stacked kernel chain), with ``pair_backend="pallas"`` (resident, the
 split density, force and coupling kernels) and with ``residency="off"``,
 ``pair_backend="pallas"`` (the per-tick scatter step); ``dam_mixed_h`` is
 the same dam with its odd-indexed particles at smoothing length 0.04
-(chip_smoke.py phase 22's scene; mixed h takes the mixed-h split chain).
+(chip_smoke.py phase 22's scene; mixed h takes the mixed-h split chain);
+``dam_bands2`` and ``dam_bands4`` run the split dam in 2 and 4 row bands
+(``parallel.sharded.build_sharded_run``: the multi-device fluid,
+chip_smoke.py phase 23), a band a card on a host with that many cards
+(``parallel.make_mesh``), else all on the one card. Device time sums over
+the cards.
 For each it prints
 
 - ticks/s of 3 timed runs of 5 blocks each (host clock around
@@ -72,6 +77,7 @@ DAM_FLUID = {   # scene name -> FluidConfig fields of that dam configuration
     "dam_mixed_h": {},
 }
 MIXED_SMALL_H = 0.04   # dam_mixed_h: the odd-indexed particles' h
+DAM_BANDS = {"dam_bands2": 2, "dam_bands4": 4}   # scene -> row bands
 RIGID_RANGES = ("rigid", "rigid.rows", "rigid.rebuild", "rigid.narrowphase")
 LIST_RANGES = ("rigid", "rigid.broadphase", "rigid.narrowphase",
                "rigid.compact", "rigid.velocity", "rigid.position")
@@ -88,6 +94,8 @@ LABELS = {"dam": f"DAM_BREAK {DAM_N}",
           "dam_scatter": f"DAM_BREAK {DAM_N} scatter + split pair",
           "dam_mixed_h": f"DAM_BREAK {DAM_N} mixed h (odd particles "
                          f"{MIXED_SMALL_H})",
+          "dam_bands2": f"DAM_BREAK {DAM_N} split, 2 row bands",
+          "dam_bands4": f"DAM_BREAK {DAM_N} split, 4 row bands",
           "simple_fluid": "SIMPLE_FLUID",
           "rigid": f"RIGID_STACKS {RIGID_N}",
           "coupled": f"COUPLED_DAM {DAM_N} + 300",
@@ -115,6 +123,16 @@ def _scene(name, device):
         cfg = sc.cfg.replace(fluid=dataclasses.replace(sc.cfg.fluid,
                                                        **DAM_FLUID[name]))
         return sc, build_run_fn(sc.spec, cfg, ticks=BLOCK, device=device)
+    if name in DAM_BANDS:
+        from .parallel import make_mesh
+        from .parallel.sharded import build_sharded_run
+        sc = build_dam_break(DAM_N, device=device)
+        sc.cfg = sc.cfg.replace(fluid=dataclasses.replace(
+            sc.cfg.fluid, pair_backend="pallas"))
+        D = DAM_BANDS[name]
+        mesh = make_mesh(D) if torch.cuda.device_count() >= D else \
+            make_mesh(devices=[device] * D)
+        return sc, build_sharded_run(sc, mesh, ticks=BLOCK)
     if name == "rigid":
         sc = build_rigid_stacks(RIGID_N, device=device)
         return sc, build_run_fn(sc.spec, sc.cfg, ticks=BLOCK, device=device)
@@ -193,6 +211,9 @@ def profile_scene(name, device):
     state = block(sc.state)                     # warm-up block
     torch.cuda.synchronize()
     label = LABELS[name]
+    mesh = getattr(getattr(block, "systems", {}).get("fluid"), "mesh", None)
+    if mesh is not None:
+        label += f" on {len(set(mesh.devices))} card(s)"
     rigid = getattr(block, "systems", {}).get("rigid")
     if rigid is not None and hasattr(rigid, "rebuilds"):
         rigid.rebuilds = 0
@@ -269,7 +290,8 @@ def profile_scene(name, device):
 
 def main(argv=None):
     import sys
-    names = (*DAM_FLUID, "simple_fluid", "rigid", *BENCH_SCENES, *CATALOG)
+    names = (*DAM_FLUID, *DAM_BANDS, "simple_fluid", "rigid", *BENCH_SCENES,
+             *CATALOG)
     want = list(sys.argv[1:] if argv is None else argv) or names
     if set(want) - set(names):
         raise SystemExit(f"profile_tick: scenes are {', '.join(names)}")

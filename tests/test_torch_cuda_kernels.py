@@ -450,6 +450,56 @@ def test_cuda_migrate_and_force_on_a_multi_block_grid(K, full):
         assert torch.equal(_bits(u), _bits(v))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [16, 32, 64])
+def test_cuda_split_kernels_in_row_bands(K, bands=3):
+    """migrate, density and force on the row-band blocks of the multi-block
+    grid (each band's rows with the neighbours' edge rows as its apron
+    rows; migrate with the band's row offset and the whole grid's ny):
+    migrate equal to the bit to migrate_plain on the block, and all three
+    to the whole grid's kernel outputs in the band's rows, with the crowds
+    fed across the band edges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    pad = lambda v: torch.nn.functional.pad(v, (0, 0, 0, 0, 1, 1))
+    fkw = {k: SWEEP[k] for k in ("h", "spiky", "visc_lap", "viscosity",
+                                 "min_d2", "min_rho")}
+
+    def density_force(m9, rho_halo=None):
+        """rho, fx, fy; the force pass takes the apron rows' rho from
+        ``rho_halo`` (the band path's third exchange)."""
+        x, y, vx, vy, m, occ = m9.unbind(1)[:6]
+        rho = pad(SK.density(torch.stack([x, y, m, occ], 1), h=H,
+                             poly6=SWEEP["poly6"]))
+        if rho_halo is not None:
+            rho[0], rho[-1] = rho_halo[0], rho_halo[-1]
+        pres = torch.clamp(FC.stiffness * (rho - FC.rest_density), min=0.0)
+        return (rho, *SK.force(torch.stack([x, y, vx, vy, m, rho, pres,
+                                            occ], 1), **fkw))
+
+    st = torch.from_numpy(_crowded_st(K, full=True)).cuda()
+    mig = dict(MIG, nx=CROWD_NX)
+    ny = st.shape[0] - 2
+    band = ny // bands
+    whole = SK.migrate(st, **mig)
+    rho_w, fx_w, fy_w = density_force(whole)
+    assert float(fx_w.abs().max()) > 0
+    for i in range(bands):
+        rows = slice(i * band, i * band + band + 2)
+        kw = dict(mig, row_off=i * band, ny=ny)
+        got = SK.migrate(st[rows].contiguous(), **kw)
+        assert torch.equal(_bits(got), _bits(SK.migrate_plain(
+            st[rows].contiguous(), **kw)))
+        assert torch.equal(_bits(got[1:-1]), _bits(whole[rows][1:-1]))
+        assert not bool(got[0].any()) and not bool(got[-1].any())
+        # the halo rows of the next passes: the neighbours' edge rows
+        rho, fx, fy = density_force(whole[rows].contiguous(), rho_w[rows])
+        assert torch.equal(_bits(rho[1:-1]), _bits(rho_w[rows][1:-1]))
+        inner = slice(i * band, i * band + band)
+        assert torch.equal(_bits(fx), _bits(fx_w[inner]))
+        assert torch.equal(_bits(fy), _bits(fy_w[inner]))
+
+
 def _pad_slots(stack, K2):
     """A row stack [rows, F, K, W] with empty slots appended up to K2."""
     return torch.nn.functional.pad(stack, (0, 0, 0, K2 - stack.shape[2]))

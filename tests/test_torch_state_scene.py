@@ -126,8 +126,11 @@ def test_out_of_slice_configurations_raise():
         cfg = sc.cfg.replace(fluid=dataclasses.replace(sc.cfg.fluid, **kw))
         with pytest.raises(ValueError, match=next(iter(kw))):
             make_fluid(sc.spec, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_fluid(sc.spec, sc.cfg, device="cpu", mesh=object())
+    # the multi-device fluid (ROADMAP Queue 1 item 7) is ported: a mesh
+    # builds the row-band step
+    from lpe_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(devices=["cpu"] * 2)
+    assert make_fluid(sc.spec, sc.cfg, device="cpu", mesh=mesh).mesh is mesh
     # mixed per-particle h (ROADMAP Queue 1 item 5) is ported: the fluid
     # system builds on a mixed-h spec
     spec = dataclasses.replace(sc.spec, liquid_h_uniform=False)
