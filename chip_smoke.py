@@ -6,8 +6,9 @@ Run from the root of a checkout, with one CUDA card:
     python3 chip_smoke.py
     python3 chip_smoke.py --compare PARENT_DIR [OTHER_DIR ...]
 
-The second form only times the SPH kernels of other trees and this one,
-alternated on one card (see compare()); the phases below are the first.
+The second form only times the SPH kernels and the grid narrowphase of
+other trees and this one, alternated on one card (see compare()); the
+phases below are the first.
 
 Phases (any failure raises and exits non-zero, printing no result):
   1. require CUDA; print the card (nvidia-smi name, power limit), torch and
@@ -177,11 +178,38 @@ Phases (any failure raises and exits non-zero, printing no result):
      tolerances, the rigids' vel and omega too), the particles that
      changed band in it counted (0 fails); d. dryrun_multichip(4) on the
      card, its line printed;
+  24. entity sharding (lpe_tpu_torch.parallel.sharded: gravity split by
+     receiver blocks, the grid rigid pipeline in y-row bands), all bands
+     on this card (run_entity_shards): a. at RIGID_STACKS 10k's rows 40
+     ticks in, cut into 2 and into 4 y-row bands (rigid_kernels.grid_band:
+     a band's rows and the row below them), narrowphase_grid on each
+     band's rows equal to the bit to its plain version (candidate rows;
+     whether every row, printed) and to the whole grid's kernel on those
+     rows (every row), each band's launch timed beside the whole grid's
+     and its bound; b. RIGID_STACKS 10k in 2 and 4 bands through
+     build_sharded_run(ticks=3) from that state: a block against the
+     single device's (pos 1e-5 m, vel and omega 1e-4, lpe_tpu's sharded
+     tolerances; whether to the bit printed), a counted block
+     (narrowphase_grid D times a tick, nothing else, no plain version; its
+     host syncs counted under set_sync_debug_mode("warn"): the guard's one
+     a tick and no other), the exchange's bytes and copies a tick, two
+     blocks from one state equal to the bit, ticks/s beside the single
+     device timed in turn; c. the galaxies of phases 18 and 19 (100k,
+     the direct sum; 1M, P3M) in 2 and 4 shards through
+     build_sharded_run(ticks=2): no port kernel, equal to the single
+     device to the bit, kernel launches a tick (profiler) and ticks/s
+     beside the single device; d. the north star (phase 12's state) with
+     the split fluid in 4 row bands and its rigids in 4 y-row bands, one
+     tick against the single-device split tick (phase 23's tolerances for
+     the liquid, b.'s for the rigids); e. dryrun_multichip(4) on the card
+     (its coupled scene, a 512-body galaxy and lpe_tpu's SHARD_GRID
+     scene), its line printed;
   16. then print the bitwise twin checks as a JSON line, the K = 64
      kernels, the launches of each new path, the couplings on moving
      rigids, the gravity parts' times and bounds, the app line, the
-     mixed_h line, the bands line, the kernels' JSON line, then the
-     result line.
+     mixed_h line, the bands line, the shards line, the kernels' JSON
+     line (narrowphase_grid's with its band launches), then the result
+     line.
 Every kernel's line carries its bound: the larger of the bytes it must
 move on these inputs (slot_bytes, coupling9_bytes, coupling_bytes: what
 an empty slot or a cell that does not couple holds is counted only where
@@ -1086,13 +1114,15 @@ COMPARE_REPS = 50        # launches a kernel is timed over in kernel_times
 def kernel_times(root: Path) -> dict:
     """Time the SPH kernels of the lpe_tpu_torch package under ``root`` on
     the inputs of check_kernels (coupling9 and coupling on both candidate
-    sets): ms a launch with L2 flushed before each (``ms``) and back to back
+    sets), and the grid narrowphase on RIGID_STACKS 10k's rows 10 ticks
+    in: ms a launch with L2 flushed before each (``ms``) and back to back
     (``warm``), COMPARE_REPS launches each, and a hash of each kernel's
     output bytes (``bits``)."""
     import hashlib
     sys.path.insert(0, str(root))
     import torch
     from lpe_tpu_torch.ops import _build
+    from lpe_tpu_torch.ops import rigid_kernels as RK
     from lpe_tpu_torch.ops import sph_kernels as SK
 
     _build.library()
@@ -1109,6 +1139,9 @@ def kernel_times(root: Path) -> dict:
                                                               cn=ck)
         calls[f"coupling_{name}"] = lambda c=c: SK.coupling(*c, inp["D10"],
                                                             cn=ck)
+    _, rrun, rstate = rigid_run(dev, BLOCK)
+    nargs, kw, _ = rrun.systems["rigid"].narrowphase_args(rstate)
+    calls["narrowphase_grid"] = lambda: RK.narrowphase_grid(*nargs, **kw)
     ms = {name: cuda_ms(fn, COMPARE_REPS) for name, fn in calls.items()}
     warm = {name: cuda_ms(fn, COMPARE_REPS, cold=False)
             for name, fn in calls.items()}
@@ -1124,12 +1157,13 @@ def kernel_times(root: Path) -> dict:
 
 
 def compare(trees: list) -> None:
-    """Time the SPH kernels of other trees (each another checkout: ``git
-    archive`` of the parent commit, or a copy of this one with a kernel's
-    constant changed, in a directory that .gitignore lists) and of this
-    checkout, alternated on one card: one process a run, in the order
-    trees, this, this, trees reversed (parent, this, this, parent for one
-    tree), each building its tree's kernels and running kernel_times.
+    """Time the SPH kernels and the grid narrowphase of other trees (each
+    another checkout: ``git archive`` of the parent commit, or a copy of
+    this one with a kernel's constant changed, in a directory that
+    .gitignore lists) and of this checkout, alternated on one card: one
+    process a run, in the order trees, this, this, trees reversed
+    (parent, this, this, parent for one tree), each building its tree's
+    kernels and running kernel_times.
     Prints each run's line, each tree's mean, and whether each kernel's
     outputs had the same bits in all runs."""
     runs = []
@@ -1503,7 +1537,7 @@ def run_rigid(dev, card):
     if differ:
         fail(f"rigid: the grid kernel's 30 ticks differ from xla's in "
              f"{differ}")
-    return launches, run, state, not differ
+    return launches, run, state, not differ, sc
 
 
 def check_narrowphase(state, run):
@@ -1791,7 +1825,8 @@ def run_north(dev, card):
           f"on {card}; launches {launches}; guard host reads "
           f"{step.guard_reads / ticks:.2f} a tick; {cells} fluid cells "
           f"couple, {dyn} with a dynamic rigid", flush=True)
-    return launches, check_coupled_kernels(run, state, "north star")
+    return launches, check_coupled_kernels(run, state, "north star"), \
+        (sc.spec, sc.cfg, state)
 
 
 def run_scenes(dev, card):
@@ -1945,7 +1980,7 @@ def run_galaxy_direct(dev, card):
     print(f"{label}: direct sum {ms:.4f} ms a tick (CUDA events, {n} "
           f"bodies, row blocks of {step.chunk}) on {card}; bound "
           f"{bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x", flush=True)
-    return launches, (ms, *bnd)
+    return launches, (ms, *bnd), (sc.spec, sc.cfg, state)
 
 
 def run_galaxy(dev, card):
@@ -2050,7 +2085,7 @@ def run_galaxy(dev, card):
               f"{bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x", flush=True)
     print(f"{label}: PP pairs this state needs {pairs:.6g} (live slots of "
           f"each resident body's {(2 * m + 1) ** 2} cells)", flush=True)
-    return launches, parts
+    return launches, parts, (sc.spec, sc.cfg, state)
 
 
 def run_ocean(dev, card):
@@ -2729,11 +2764,11 @@ def band_migrate(dev, card):
     return out
 
 
-def timed_blocks(run, state, blocks=3):
-    """``blocks`` blocks of ``run`` from ``state`` on the host clock
-    around synchronized blocks, every kernel counter set to 0 just before
-    and read just after: (state, ticks/s, launches by name, plain calls by
-    name)."""
+def timed_blocks(run, state, blocks=3, block=BLOCK):
+    """``blocks`` blocks of ``run`` (``block`` ticks each) from ``state``
+    on the host clock around synchronized blocks, every kernel counter set
+    to 0 just before and read just after: (state, ticks/s, launches by
+    name, plain calls by name)."""
     import torch
     from lpe_tpu_torch.ops import rigid_kernels as RK
     from lpe_tpu_torch.ops import sph_kernels as SK
@@ -2746,7 +2781,7 @@ def timed_blocks(run, state, blocks=3):
         state = run(state)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    return (state, blocks * BLOCK / dt,
+    return (state, blocks * block / dt,
             {op.name: op.launches for op in ops if op.launches},
             {op.name: op.plain_calls for op in ops if op.plain_calls})
 
@@ -2829,19 +2864,21 @@ def band_dam(dev, card, D):
                 exchange_copies_per_tick=xcopies, one_tick=g), (run, state)
 
 
-def band_tps(card, runs, rounds=6, blocks=2):
-    """Phase 23b's times: ``runs`` (label -> (block, state)) timed in turn,
-    ``blocks`` synchronized blocks each on the host clock, over ``rounds``
-    rounds with the order reversed every other round, so that a drift of
-    the card or the host falls on every label alike. Returns label -> the
-    rounds' ticks/s, their median, and (for the bands) each round's
-    single-device ticks/s over the label's."""
+def band_tps(card, runs, rounds=6, blocks=2, what=f"dam {DAM_N} split",
+             block=BLOCK):
+    """Phase 23b's times (and 24b's): ``runs`` (label -> (block, state))
+    timed in turn, ``blocks`` synchronized blocks of ``block`` ticks each
+    on the host clock, over ``rounds`` rounds with the order reversed
+    every other round, so that a drift of the card or the host falls on
+    every label alike. Returns label -> the rounds' ticks/s, their median,
+    and (for the bands) each round's single-device ticks/s over the
+    label's."""
     order = list(runs)
     tps = {k: [] for k in order}
     for r in range(rounds):
         for k in (order if r % 2 == 0 else order[::-1]):
             run, state = runs[k]
-            state, t, _, _ = timed_blocks(run, state, blocks)
+            state, t, _, _ = timed_blocks(run, state, blocks, block)
             runs[k] = (run, state)
             tps[k].append(t)
     single = tps[order[0]]
@@ -2854,8 +2891,8 @@ def band_tps(card, runs, rounds=6, blocks=2):
         extra = "" if k == order[0] else (
             "; single device over it " + ", ".join(
                 f"{x:.3f}" for x in line["slowdown"]))
-        print(f"dam {DAM_N} split, {k}: ticks/s over {rounds} rounds of "
-              f"{blocks} blocks of {BLOCK}, timed in turn (host clock, "
+        print(f"{what}, {k}: ticks/s over {rounds} rounds of "
+              f"{blocks} blocks of {block}, timed in turn (host clock, "
               f"synchronized) on {card}: " +
               ", ".join(f"{x:.2f}" for x in tps[k]) +
               f" (median {line['median']:.2f}){extra}", flush=True)
@@ -2923,13 +2960,356 @@ def run_bands(dev, card, coupled):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: entity sharding (gravity by receiver blocks, the grid rigid
+# pipeline in y-row bands), the bands all on this card
+SHARD_COUNTS = (2, 4)
+RIGID_BAND_BLOCK = 3     # ticks a rigid band block (a 10k tick: host-bound)
+GRAVITY_BAND_BLOCK = 2   # ticks a galaxy block
+BAND_ROUNDS = 2          # rounds of rigid_band_tps
+# the grid rigid pipeline in bands against one device: lpe_tpu's sharded
+# tolerances (tests/test_parallel.py:108-112, vel as omega)
+RIGID_BAND_TOL = dict(pos=1e-5, vel=1e-4, omega=1e-4)
+NP_NAMES = ("hit", "nrm", "pen", "pts", "pens", "cval", "pos_a", "pos_b")
+
+
+def grid_np_bound(RK, nargs, kw, outs):
+    """(bound ms, bound by) of narrowphase_grid on ``nargs``: its inputs
+    and outputs once over 3.35 TB/s, or its operations (phase 8's count:
+    each staged body's ring ~24 a vertex, then per row the n^2 projections
+    of 3 each and ~40 for the clip) over 67 TFLOP/s."""
+    a, b = RK.grid_rows(*nargs, **kw)
+    n = (a[3] + b[3]).double().clamp(min=0)
+    bodies = float(nargs[3].double().sum() + nargs[7].double().sum())
+    return bound(nbytes(*nargs, *outs),
+                 24 * bodies + float((3 * n * n + 40).sum()))
+
+
+def band_narrowphase(card, rrun, rstate):
+    """Phase 24a: at RIGID_STACKS 10k's rows 40 ticks in (phase 7's
+    state), the rows cut into D y-row bands (rigid_kernels.grid_band: a
+    band's grids hold its rows and the row below them), D = 2 and 4:
+    narrowphase_grid on each band's rows equals its plain version (every
+    candidate row; whether every row is printed) and the whole grid's
+    kernel on those rows (every row), to the bit; each band's launch timed
+    (cuda_ms, L2 flushed) beside the whole grid's and beside its bound."""
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    nargs, kw, valid = rrun.systems["rigid"].narrowphase_args(rstate)
+    nbx, R = kw["nbx"], valid.shape[1]
+    whole = RK.narrowphase_grid(*nargs, **kw)
+    whole_ms = cuda_ms(lambda: RK.narrowphase_grid(*nargs, **kw))
+    whole_bnd = grid_np_bound(RK, nargs, kw, whole)
+    out = dict(whole_ms=whole_ms, whole_bound_ms=whole_bnd[0],
+               whole_bound_by=whole_bnd[1])
+    for D in SHARD_COUNTS:
+        rows = nbx // D
+        res = []
+        for i in range(D):
+            band = RK.grid_band(nargs, nbx=nbx, r0=i * rows, rows=rows)
+            got = RK.narrowphase_grid(*band, **kw)
+            ref = RK.narrowphase_grid_plain(*band, **kw)
+            cut = slice(i * rows * nbx * R, (i + 1) * rows * nbx * R)
+            v = valid[i * rows * nbx:(i + 1) * rows * nbx].reshape(-1)
+            off_whole = [nm for nm, g, w in zip(NP_NAMES, got, whole)
+                         if not tensor_bits_equal(g, w[cut])]
+            off_plain = [nm for nm, g, r in zip(NP_NAMES, got, ref)
+                         if not tensor_bits_equal(g[v], r[v])]
+            if off_whole or off_plain:
+                fail(f"band narrowphase: band {i} of {D} differs from the "
+                     f"whole grid's rows in {off_whole or 'nothing'}, from "
+                     f"its plain version in {off_plain or 'nothing'}")
+            every = all(tensor_bits_equal(g, r) for g, r in zip(got, ref))
+            ms = cuda_ms(lambda band=band: RK.narrowphase_grid(*band, **kw))
+            bnd = grid_np_bound(RK, band, kw, got)
+            res.append(dict(ms=ms, bound_ms=bnd[0], bound_by=bnd[1],
+                            candidate_rows=int(v.sum()),
+                            every_row_equals_plain=every))
+        out[f"d{D}"] = res
+        print(f"band narrowphase at RIGID_STACKS {RIGID_N}'s rows in {D} "
+              f"y-row bands of {rows} cell rows (+1 halo row): each band "
+              f"equal to the bit to the whole grid's kernel on its rows and "
+              f"to its plain version on its candidate rows (every row "
+              f"{[r['every_row_equals_plain'] for r in res]}); ms a band "
+              + ", ".join(f"{r['ms']:.4f}" for r in res) +
+              f" (sum {sum(r['ms'] for r in res):.4f}), bound "
+              + ", ".join(f"{r['bound_ms']:.4f}" for r in res) +
+              f" ms ({res[0]['bound_by']}); whole grid {whole_ms:.4f} ms, "
+              f"bound {whole_bnd[0]:.4f} ms; on {card}", flush=True)
+    return out
+
+
+def sync_count(fn):
+    """(fn(), the host syncs it made by source line "file:line"):
+    set_sync_debug_mode("warn") warns at each synchronizing CUDA call,
+    from the Python line that made it."""
+    import collections
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+
+
+def guard_line() -> str:
+    """"file:line" of the grid rigid pipeline's guard read."""
+    from lpe_tpu_torch.systems.rigid import grid_pipeline
+    src = Path(grid_pipeline.__file__)
+    n = next(i for i, line in enumerate(src.read_text().splitlines(), 1)
+             if "bool(need)" in line)
+    return f"{src.name}:{n}"
+
+
+def state_gaps(a, b, rows):
+    """max |d| of pos, vel, angle, omega over the bodies ``rows`` of two
+    states, and whether they are equal to the bit."""
+    gaps = {f: max_err(getattr(a.bodies, f)[rows], getattr(b.bodies, f)[rows])
+            for f in ("pos", "vel", "angle", "omega")}
+    gaps["bitwise"] = all(same_bits(getattr(a.bodies, f)[rows],
+                                    getattr(b.bodies, f)[rows])
+                          for f in ("pos", "vel", "angle", "omega"))
+    return gaps
+
+
+def hold_rigid_bands(label, g):
+    if not all(g[f] <= tol for f, tol in RIGID_BAND_TOL.items()):
+        fail(f"{label}: differs from the single device beyond "
+             f"{RIGID_BAND_TOL}: {g}")
+
+
+def rigid_bands(card, rsc, rstate):
+    """Phase 24b: RIGID_STACKS 10k from phase 7's state (40 ticks in) in
+    2 and 4 y-row bands through build_sharded_run(ticks=RIGID_BAND_BLOCK),
+    beside the single device: a first block against the single device's
+    (bits printed, RIGID_BAND_TOL held); one counted block
+    (narrowphase_grid D times a tick, nothing else, no plain version) whose
+    host syncs are counted (the guard's one a tick, nothing else); the
+    exchange's bytes and copies a tick; two blocks from one state equal to
+    the bit; ticks/s of the single device and both band counts timed in
+    turn (band_tps's rounds); kernel launches a tick of each (profiler)."""
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    from lpe_tpu_torch.parallel import make_mesh
+    from lpe_tpu_torch.parallel.sharded import build_sharded_run
+    from lpe_tpu_torch.scene import Scene
+    from lpe_tpu_torch.systems import build_run_fn
+    dev = rstate.bodies.pos.device
+    S = rsc.spec.n_solid
+    scene = Scene(state=rstate, spec=rsc.spec, cfg=rsc.cfg)
+    single = build_run_fn(rsc.spec, rsc.cfg, ticks=RIGID_BAND_BLOCK,
+                          device=dev)
+    want = single(rstate)
+    _, single_syncs = sync_count(lambda: single(rstate))
+    guard = guard_line()
+    out = dict(single_syncs=dict(single_syncs))
+    runs = {"single device": (single, want)}
+    # one-tick runs for the profiler's launch counts (a block of the
+    # bands would hand it ~10^5 launches a tick to unpack)
+    tick1 = {"single device": build_run_fn(rsc.spec, rsc.cfg, ticks=1,
+                                           device=dev)}
+    for D in SHARD_COUNTS:
+        label = f"rigid {RIGID_N} in {D} y-row bands"
+        mesh = make_mesh(devices=[dev] * D)
+        run = build_sharded_run(scene, mesh, ticks=RIGID_BAND_BLOCK)
+        tick1[f"{D} bands"] = build_sharded_run(scene, mesh, ticks=1)
+        step = run.systems["rigid"]
+        if step.bands != D:
+            fail(f"{label}: build_sharded_run did not take the band path")
+        got = run(rstate)
+        g = state_gaps(got, want, slice(0, S))
+        hold_rigid_bands(label, g)
+        step.halo_stats.update(bytes=0, copies=0, split_bytes=0)
+        step.guard_reads = 0
+        RK.reset_counters()
+        SK.reset_counters()
+        state, syncs = sync_count(lambda: run(got))
+        launches = {op.name: op.launches for op in (*SK.OPS, *RK.OPS)
+                    if op.launches}
+        plain = {op.name: op.plain_calls for op in (*SK.OPS, *RK.OPS)
+                 if op.plain_calls}
+        ticks = RIGID_BAND_BLOCK
+        if launches != {"narrowphase_grid": D * ticks} or plain:
+            fail(f"{label}: launches {launches}, plain calls {plain}")
+        if syncs != {guard: ticks} or step.guard_reads != ticks:
+            fail(f"{label}: host syncs {dict(syncs)} and {step.guard_reads} "
+                 f"guard reads in a block of {ticks} ticks (the guard's "
+                 f"{guard} once a tick expected, nothing else)")
+        hs = {k: v / ticks for k, v in step.halo_stats.items()}
+        a, b = run(state), run(state)
+        differ = [n for part in ("", "bodies")
+                  for n, u, w in state_fields(a, b, part)
+                  if not tensor_bits_equal(u, w)]
+        if differ:
+            fail(f"{label}: two blocks from one state differ in {differ}")
+        out[f"d{D}"] = dict(launches_per_tick={
+            k: v / ticks for k, v in launches.items()},
+            host_syncs_per_tick=syncs[guard] / ticks,
+            exchange_bytes_per_tick=hs["bytes"],
+            exchange_copies_per_tick=hs["copies"],
+            split_bytes_per_tick=hs["split_bytes"], one_block=g)
+        print(f"{label}: on {card}; narrowphase_grid {D * ticks} launches "
+              f"in {ticks} ticks, no plain call; host syncs {dict(syncs)} "
+              f"(the guard's, one a tick; the single device's block "
+              f"{dict(single_syncs)});"
+              f" exchange {hs['bytes']:.0f} bytes and {hs['copies']:.0f} "
+              f"copies a tick, {hs['split_bytes']:.0f} bytes to the bands "
+              f"and back; two blocks from one state bitwise equal; one "
+              f"block of {ticks} against the single device: max |dpos| "
+              f"{g['pos']:.3e} m, |dvel| {g['vel']:.3e} m/s, |domega| "
+              f"{g['omega']:.3e} rad/s, bitwise {g['bitwise']}", flush=True)
+        runs[f"{D} bands"] = (run, state)
+    out["ticks_per_s"] = band_tps(card, runs, rounds=BAND_ROUNDS, blocks=1,
+                                  what=f"rigid {RIGID_N}",
+                                  block=RIGID_BAND_BLOCK)
+    out["launches_per_tick"] = {
+        k: profiled_launches(lambda: tick1[k](st))
+        for k, (_, st) in runs.items()}
+    print(f"rigid {RIGID_N}: kernel launches a tick (profiler, one tick "
+          f"each) " + ", ".join(f"{k} {v:.0f}" for k, v in
+                                out["launches_per_tick"].items()) +
+          f" on {card}", flush=True)
+    return out
+
+
+def profiled_launches(fn):
+    """Kernel launches on the card while ``fn`` runs (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from lpe_tpu_torch.profile_tick import _kernel_times
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _kernel_times(prof, set())[1]
+
+
+def galaxy_shards(card, label, settled):
+    """Phase 24c: a galaxy (its settled state from phase 18 or 19) in 2
+    and 4 shards through build_sharded_run(ticks=GRAVITY_BAND_BLOCK): no
+    port kernel and no plain version, the block equal to the single
+    device's to the bit in every state field, kernel launches a tick
+    (profiler), ticks/s beside the single device (each timed once, in
+    turn)."""
+    import torch
+    from lpe_tpu_torch.parallel import make_mesh
+    from lpe_tpu_torch.parallel.sharded import build_sharded_run
+    from lpe_tpu_torch.scene import Scene
+    from lpe_tpu_torch.systems import build_run_fn
+    spec, cfg, state = settled
+    dev = state.bodies.pos.device
+    scene = Scene(state=state, spec=spec, cfg=cfg)
+    ticks = GRAVITY_BAND_BLOCK
+    single = build_run_fn(spec, cfg, ticks=ticks, device=dev)
+    want = single(state)
+    out = {}
+    runs = {"single device": (single, state)}
+    for D in SHARD_COUNTS:
+        run = build_sharded_run(scene, make_mesh(devices=[dev] * D),
+                                ticks=ticks)
+        step = run.systems["barnes_hut"]
+        if step.devices is None or len(step.devices) != D:
+            fail(f"{label} in {D} shards: gravity is not split")
+        got, _, launches, plain = timed_blocks(run, state, 1, ticks)
+        if launches or plain:
+            fail(f"{label} in {D} shards: launches {launches}, plain {plain}")
+        differ = [n for part in ("", "bodies")
+                  for n, u, w in state_fields(got, want, part)
+                  if not tensor_bits_equal(u, w)]
+        if differ:
+            fail(f"{label} in {D} shards differs from the single device in "
+                 f"{differ}")
+        out[f"d{D}"] = dict(bitwise=True)
+        runs[f"{D} shards"] = (run, state)
+    tps = {}
+    for k, (run, st) in runs.items():
+        _, t, _, _ = timed_blocks(run, st, 1, ticks)
+        tps[k] = t
+        n = profiled_launches(lambda: run(st)) / ticks
+        out[k.replace(" ", "_")] = dict(ticks_per_s=t, launches_per_tick=n)
+    print(f"{label} in " + " and ".join(str(D) for D in SHARD_COUNTS) +
+          f" shards (receiver blocks over the mesh, one card): a block of "
+          f"{ticks} equal to the single device's to the bit in every state "
+          f"field; ticks/s and kernel launches a tick " + "; ".join(
+              f"{k} {v['ticks_per_s']:.3f}, {v['launches_per_tick']:.0f}"
+              for k, v in out.items() if "ticks_per_s" in v) +
+          f" (host clock, synchronized, one block each in turn) on {card}",
+          flush=True)
+    return out
+
+
+def north_bands(card, settled):
+    """Phase 24d: the north star (phase 12's settled state) with the split
+    fluid (pair_backend="pallas") in 4 row bands and its grid rigids in 4
+    y-row bands: one tick against the single-device split tick, the
+    liquid at phase 23's tolerances (hold_bands), the rigids at
+    RIGID_BAND_TOL."""
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    from lpe_tpu_torch.parallel import make_mesh
+    from lpe_tpu_torch.parallel.sharded import build_sharded_tick
+    from lpe_tpu_torch.scene import Scene
+    from lpe_tpu_torch.systems import build_tick_fn
+    spec, cfg, state = settled
+    dev = state.bodies.pos.device
+    D = SHARD_COUNTS[-1]
+    label = f"north star {NORTH} split, fluid and rigids in {D} bands"
+    cfg = fluid_cfg(cfg, pair_backend="pallas")
+    tick = build_sharded_tick(Scene(state=state, spec=spec, cfg=cfg),
+                              make_mesh(devices=[dev] * D))
+    if getattr(tick.systems["fluid"], "mesh", None) is None or \
+            tick.systems["rigid"].bands != D:
+        fail(f"{label}: not both in bands")
+    want = build_tick_fn(spec, cfg, device=dev)(state)
+    RK.reset_counters()
+    got = tick(state)
+    if RK.narrowphase_grid.launches != D or RK.narrowphase_grid.plain_calls:
+        fail(f"{label}: narrowphase_grid launches "
+             f"{RK.narrowphase_grid.launches}, plain calls "
+             f"{RK.narrowphase_grid.plain_calls}")
+    g = band_gaps(got, want, spec)
+    hold_bands(label, g)
+    rg = state_gaps(got, want, slice(0, spec.n_solid))
+    hold_rigid_bands(label, rg)
+    print(f"{label}: one tick against the single-device split tick on "
+          f"{card}: max |dpos| {g['dpos']:.3e} m, |dvel| {g['dvel']:.3e} "
+          f"m/s, liquid bitwise {g['liquid_bitwise']}; rigids |dpos| "
+          f"{rg['pos']:.3e} m, |dvel| {rg['vel']:.3e} m/s, |domega| "
+          f"{rg['omega']:.3e} rad/s, bitwise {rg['bitwise']}", flush=True)
+    return dict(liquid=g, rigids=rg)
+
+
+def run_entity_shards(dev, card, rigid, galaxies, north):
+    """Phase 24: entity sharding on one card (a.-e.)."""
+    from lpe_tpu_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    rsc, rrun, rstate = rigid
+    out = dict(card=card, narrowphase=band_narrowphase(card, rrun, rstate),
+               rigid=rigid_bands(card, rsc, rstate))
+    for name, settled in galaxies.items():
+        out[name] = galaxy_shards(card, name, settled)
+    out["north"] = north_bands(card, north)
+    out["dryrun"] = dryrun_multichip(SHARD_COUNTS[-1], device=dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"entity sharding: phase 24 in {out['seconds']:.2f} s",
+          flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--compare", type=Path, nargs="+", metavar="DIR",
-                    help="time the SPH kernels of the trees DIR (e.g. the "
-                         "parent commit) and of this checkout alternately, "
-                         "and do nothing else")
+                    help="time the SPH kernels and the grid narrowphase "
+                         "of the trees DIR (e.g. the parent commit) and of "
+                         "this checkout alternately, and do nothing else")
     ap.add_argument("--kernel-times", type=Path, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     try:
@@ -3001,8 +3381,8 @@ def main(argv=None) -> int:
 
     # 7.-8. the rigid tick runs the grid kernel; the row form, which it
     # replaces there, is no longer on a path
-    launches["narrowphase_grid"], rrun, rstate, twins["rigid_xla_tick"] = \
-        run_rigid(dev, card)
+    (launches["narrowphase_grid"], rrun, rstate, twins["rigid_xla_tick"],
+     rsc) = run_rigid(dev, card)
     launches["narrowphase"] = 0
     for name, (e, t, bnd) in check_narrowphase(rstate, rrun).items():
         errs[name], times[name], bounds[name] = e, t, bnd
@@ -3010,12 +3390,13 @@ def main(argv=None) -> int:
     # 10.-15. the scenes of the rigid list pipeline, and the north star
     paths, coupled, coupled_split = run_coupled(dev, card)
     paths.update(run_scenes(dev, card))
-    paths["north"], north = run_north(dev, card)
+    paths["north"], north, north_settled = run_north(dev, card)
 
     # 17.-20. N-body gravity and the scenes it opens
     paths["keplerian"] = run_keplerian(dev, card)
-    paths["galaxy_direct"], direct = run_galaxy_direct(dev, card)
-    paths["galaxy"], gparts = run_galaxy(dev, card)
+    paths["galaxy_direct"], direct, gal_direct = run_galaxy_direct(dev,
+                                                                    card)
+    paths["galaxy"], gparts, gal_1m = run_galaxy(dev, card)
     paths["planetary_ocean"], ocean = run_ocean(dev, card)
 
     # 21. the application layer: the CLI, the renderer, the HUD
@@ -3033,7 +3414,17 @@ def main(argv=None) -> int:
                 f"coupled_d{BAND_MIGRATE_D}"):
         paths[f"bands_{key}"] = bands[key]["launches"]
 
-    # 16. results (after 17-23): no single PyTorch call computes any of
+    # 24. entity sharding: gravity by receiver blocks and the grid rigid
+    # pipeline in y-row bands, all on this card
+    shards = run_entity_shards(
+        dev, card, (rsc, rrun, rstate),
+        {"galaxy_direct_100k": gal_direct, "galaxy_1m": gal_1m},
+        north_settled)
+    band_np = {f"d{D}": shards["rigid"][f"d{D}"]["launches_per_tick"]
+               ["narrowphase_grid"] * RIGID_BAND_BLOCK for D in SHARD_COUNTS}
+    paths["shards_rigid"] = band_np
+
+    # 16. results (after 17-24): no single PyTorch call computes any of
     # these kernels
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], max_abs_err=errs[name],
@@ -3041,6 +3432,9 @@ def main(argv=None) -> int:
                     bound_ms=bounds[name][0], bound_by=bounds[name][1],
                     library_ms=None)
                for name, (src, rep) in KERNEL_INFO.items()]
+    for k in kernels:     # phase 24b's band blocks, one of RIGID_BAND_BLOCK
+        if k["name"] == "narrowphase_grid":
+            k["band_launches"] = band_np
     print(json.dumps({"bitwise_twins": twins}), flush=True)
     print(json.dumps({"kernels_at_k64_folded": k64}), flush=True)
     print(json.dumps({"path_launches": paths}), flush=True)
@@ -3058,6 +3452,7 @@ def main(argv=None) -> int:
     print(json.dumps({"app": app}), flush=True)
     print(json.dumps({"mixed_h": mixed}), flush=True)
     print(json.dumps({"bands": bands}), flush=True)
+    print(json.dumps({"shards": shards}), flush=True)
     print(json.dumps({"coupling_oracle": {
         "spread_max": max(c["spread"] for c in COUPLE_ORACLE),
         "worst_err_over_limit": max(c["partials_err"] / c["limit"]

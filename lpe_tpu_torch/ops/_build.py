@@ -86,7 +86,8 @@ NG_MAX_CLS = 8       # classes of rows csrc/narrowphase_grid.cu takes
 class NarrowGridParams(ctypes.Structure):
     _fields_ = [("NC", _i), ("KB", _i), ("R", _i), ("NBIG", _i),
                 ("nbx", _i), ("V", _i), ("ncls", _i), ("npass", _i),
-                ("nsb", _i), ("cls_end", _i * NG_MAX_CLS),
+                ("ny", _i), ("rows", _i), ("nsb", _i),
+                ("cls_end", _i * NG_MAX_CLS),
                 ("cls_dx", _i * NG_MAX_CLS), ("cls_dy", _i * NG_MAX_CLS),
                 ("cls_big", _i * NG_MAX_CLS), ("pass_end", _i * NG_MAX_CLS)]
 

@@ -6,17 +6,23 @@
 // it (lpe_tpu/systems/rigid/grid_pipeline.py:470-527): there a row's two
 // shapes are selected from the body grids by slot, class by class, and
 // concatenated, and the kernel reads them back. Here one block takes one
-// cell's R candidate rows [NC, R] and stages the bodies they name:
-// - inputs: the per-cell body grids (pos [NC, KB, 2], cos and sin of the
-//   angle [NC, KB], local vertices [NC, KB, V, 2], vertex counts [NC, KB])
-//   and the NBIG big bodies' (pos, cos, sin, vertices, counts), the rows'
-//   slots ka, kb [NC, R] and the class layout (NarrowGridParams): a row of
-//   class (dx, dy) takes side B from cell ((cy + dy) mod nbx, (cx + dx) mod
-//   nbx) at slot kb, a row of the big class from big body kb; side A is
-//   always the row's own cell at slot ka;
-// - outputs, row-contiguous [NC * R]: make_narrowphase's (hit, nrm, pen,
-//   pts, pens, cval), cval ANDed with hit, and the rows' side-A and side-B
-//   positions, which the solvers read.
+// cell's R candidate rows and stages the bodies they name:
+// - inputs: the per-cell body grids of ny rows of nbx cells, NC = ny * nbx
+//   (pos [NC, KB, 2], cos and sin of the angle [NC, KB], local vertices
+//   [NC, KB, V, 2], vertex counts [NC, KB]) and the NBIG big bodies' (pos,
+//   cos, sin, vertices, counts), the slots ka, kb [rows * nbx, R] of the
+//   candidate rows of the grids' first `rows` cell rows (rows <= ny) and
+//   the class layout (NarrowGridParams): a row of class (dx, dy) takes side
+//   B from cell ((cy + dy) mod ny, (cx + dx) mod nbx) at slot kb, a row of
+//   the big class from big body kb; side A is always the row's own cell at
+//   slot ka. The whole grid is ny = rows = nbx. A y-row band of the
+//   multi-device rigid pipeline (systems/rigid/grid_pipeline.py) holds its
+//   own rows and the row below them, ny = rows + 1: the forward
+//   half-stencil's partners lie at dy in {0, 1}, so its rows' partners are
+//   always among its rows;
+// - outputs, row-contiguous [rows * nbx * R]: make_narrowphase's (hit,
+//   nrm, pen, pts, pens, cval), cval ANDed with hit, and the rows' side-A
+//   and side-B positions, which the solvers read.
 // The row's math is narrow.cuh's narrow_row, which the row-form kernel
 // (narrowphase.cu) shares, so one row gives the bits of the plain version
 // (rigid_kernels.narrowphase_grid_plain: the gathers, then
@@ -26,16 +32,18 @@
 // each body grid once (RIGID_STACKS 10k: 576 cells x 48 slots x 7
 // vertices, ~2 MB with pos, cos, sin and counts), the rows' slots (0.7 MB)
 // and its outputs (39 B a row of results and 16 B of positions: 4.6 MB at
-// 82,944 rows): ~7 MB, ~2 us at 3.35 TB/s. Its ~1-1.5 kFLOP a row take
+// 82,944 rows): ~7 MB, ~2 us at 3.35 TB/s; a band of D moves ~1/D of it
+// (its rows, its grids and the halo row's). Its ~1-1.5 kFLOP a row take
 // under 3 us at the 67 TFLOP/s fp32 rate. The row form instead reads 2 x
 // 76 B of gathered shapes a row and rebuilds both world rings and all face
 // normals per row (82,944 rows x 2 rings, where the grid holds 27,648
 // bodies).
 //
 // Design:
-// - One block a cell. Its staging area holds its own cell's KB bodies and,
-//   for each class, the partner's: a neighbour cell's KB bodies (E, SW, S,
-//   SE) or the NBIG big bodies; the same-cell class reads the own cell. The
+// - One block a cell that owns rows. Its staging area holds its own
+//   cell's KB bodies and, for each class, the partner's: a neighbour
+//   cell's KB bodies (E, SW, S, SE) or the NBIG big bodies; the same-cell
+//   class reads the own cell. The
 //   block first lists the bodies its rows name, each once (shared-memory
 //   atomics; RIGID_STACKS 10k: at most 132 of the 244, as a class has fewer
 //   rows than its partner has slots), then builds each listed body once
@@ -62,6 +70,8 @@ constexpr int NG_MAX_CLS = 8;
 // The ctypes Structure of lpe_tpu_torch/ops/_build.py, field for field.
 struct NarrowGridParams {
   int NC, KB, R, NBIG, nbx, V, ncls, npass;
+  int ny;                      // cell rows of the grids: NC = ny * nbx
+  int rows;                    // the first `rows` of them own the rows
   int nsb;                     // staged bodies of the largest pass
   int cls_end[NG_MAX_CLS];     // one past class c's last row
   int cls_dx[NG_MAX_CLS], cls_dy[NG_MAX_CLS];
@@ -119,7 +129,8 @@ __device__ __forceinline__ void load_ring(const float* ring, int s, int i,
 }  // namespace
 
 // Global namespace: profilers name it narrowphase_grid_kernel<V>.
-// grid: NC blocks, one a cell; shared memory nsb * ng_body_bytes(V).
+// grid: rows * nbx blocks, one a cell that owns rows; shared memory nsb *
+// ng_body_bytes(V).
 template <int V>
 __global__ void __launch_bounds__(NG_THREADS) narrowphase_grid_kernel(
     const float* __restrict__ g_pos, const float* __restrict__ g_cos,
@@ -196,7 +207,7 @@ __global__ void __launch_bounds__(NG_THREADS) narrowphase_grid_kernel(
           pos = b_pos, cs = b_cos, sn = b_sin, verts = b_verts, nv = b_nv;
           j = i - reg0[c];
         } else {
-          const int py = (cy + P.cls_dy[c] + P.nbx) % P.nbx;
+          const int py = (cy + P.cls_dy[c] + P.ny) % P.ny;
           const int px = (cx + P.cls_dx[c] + P.nbx) % P.nbx;
           j = (long)(py * P.nbx + px) * KB + (i - reg0[c]);
         }
@@ -254,7 +265,7 @@ cudaError_t launch_grid(const float* gp, const float* gc, const float* gs,
   }
   int threads = (rows + 31) / 32 * 32;
   threads = threads < 32 ? 32 : (threads > NG_THREADS ? NG_THREADS : threads);
-  narrowphase_grid_kernel<V><<<P->NC, threads, smem, stream>>>(
+  narrowphase_grid_kernel<V><<<P->rows * P->nbx, threads, smem, stream>>>(
       gp, gc, gs, gv, gn, bp, bc, bs, bv, bn, ka, kb, hit, nrm, pen, pts,
       pens, cval, pa, pb, *P);
   return cudaGetLastError();
@@ -271,7 +282,8 @@ LPE_EXPORT int lpe_narrowphase_grid(
     float* pos_b, cudaStream_t stream, const NarrowGridParams* P) {
   const NarrowGridParams& p = *P;
   bool ok = p.NC >= 1 && p.KB >= 1 && p.R >= 1 && p.NBIG >= 0 &&
-            p.nbx >= 1 && p.nbx * p.nbx == p.NC && p.ncls >= 1 &&
+            p.nbx >= 1 && p.ny >= 1 && p.nbx * p.ny == p.NC &&
+            p.rows >= 1 && p.rows <= p.ny && p.ncls >= 1 &&
             p.ncls <= NG_MAX_CLS && p.npass >= 1 && p.npass <= p.ncls &&
             p.nsb >= p.KB && p.cls_end[p.ncls - 1] == p.R &&
             p.pass_end[p.npass - 1] == p.ncls;

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.numerics import scatter_add, true_div
+from ..parallel import split_runs
 
 # largest [bodies, K] pair temporary of a PP pass (128 MB float32)
 PP_BAND_ELEMS = 1 << 25
@@ -163,7 +164,7 @@ def make_pm_gravity(universe: float, grid: int, softener: float,
 
 def make_pp_correction(universe: float, grid: int, softener: float,
                        cutoff_cells: float, max_per_cell: int,
-                       n_bodies: int | None = None):
+                       n_bodies: int | None = None, devices=None):
     """Short-range particle-particle half of the P3M split (unscaled by G).
 
     Returns ``correct(pos[N,2], src_mass[N]) -> [N,2]``: the exact softened
@@ -176,7 +177,11 @@ def make_pp_correction(universe: float, grid: int, softener: float,
     Sizing is lpe_tpu's: with ``n_bodies`` given, K follows the expected
     mean occupancy with 3x headroom; past 64 the grid subdivides (m = 2)
     before K grows, K is floored at ``max_per_cell / m^2`` and capped at
-    128. The returned function carries ``overflow_fraction(pos)`` (the
+    128. With ``devices`` (a list), the cell table is built on the input's
+    device and copied to each of them, and the passes over the receivers
+    go to them in contiguous runs (``parallel.split_runs``); the results
+    come back in order, the bits of one device. The returned function
+    carries ``overflow_fraction(pos)`` (the
     fraction of in-bounds bodies past their cell's K; a host read), ``K``,
     ``subdivision`` (m) and ``ncells``."""
     cell = universe / int(grid)
@@ -231,25 +236,41 @@ def make_pp_correction(universe: float, grid: int, softener: float,
         own = torch.where(res, (cell // nc + m) * W + cell % nc + m,
                           m * W + m)            # a dropped body: any cell
         self_k = torch.arange(K, device=dev)[None, :] == (slot_p % K)[:, None]
-        acc = torch.zeros((N, 2), dtype=dtype, device=dev)
-        for a in range(0, N, band):
-            b = min(N, a + band)
-            xi, yi = x[a:b, None], y[a:b, None]
-            for dy_ in range(-m, m + 1):
-                for dx_ in range(-m, m + 1):
-                    nb = D[own[a:b] + dy_ * W + dx_]        # [bodies, 4, K]
-                    ddx = nb[:, 0] - xi                     # j - i
-                    ddy = nb[:, 1] - yi
-                    d2g = ddx * ddx + ddy * ddy
-                    pair = nb[:, 3] > 0
-                    if dy_ == 0 and dx_ == 0:               # no self pair
-                        pair = pair & ~self_k[a:b]
-                    pair = pair & (d2g < rc2)
-                    w = (1.0 - _smoothstep5((torch.sqrt(d2g) - r0) / rw)) \
-                        / torch.pow(torch.clamp(d2g + s2c, min=1e-30), 1.5)
-                    w = torch.where(pair, nb[:, 2] * w, torch.zeros_like(w))
-                    acc[a:b, 0] += (w * ddx).sum(-1)
-                    acc[a:b, 1] += (w * ddy).sum(-1)
+        parts = []
+        for pdev, run in split_runs(list(range(0, N, band)),
+                                    devices or [dev]):
+            # this device's passes, rows [a0, a1): its own copy of the
+            # table, its receivers' rows; a pass is the same shape as on
+            # one device, so each body's sum keeps its order and its bits
+            a0, a1 = run[0], min(N, run[-1] + band)
+            Dd = D.to(pdev, non_blocking=True)
+            xd, yd, own_d, self_d = (
+                t[a0:a1].to(pdev, non_blocking=True)
+                for t in (x, y, own, self_k))
+            acc = torch.zeros((a1 - a0, 2), dtype=dtype, device=pdev)
+            for a in run:
+                b = min(a1, a + band)
+                i, j = a - a0, b - a0
+                xi, yi = xd[i:j, None], yd[i:j, None]
+                for dy_ in range(-m, m + 1):
+                    for dx_ in range(-m, m + 1):
+                        nb = Dd[own_d[i:j] + dy_ * W + dx_]  # [bodies, 4, K]
+                        ddx = nb[:, 0] - xi                     # j - i
+                        ddy = nb[:, 1] - yi
+                        d2g = ddx * ddx + ddy * ddy
+                        pair = nb[:, 3] > 0
+                        if dy_ == 0 and dx_ == 0:           # no self pair
+                            pair = pair & ~self_d[i:j]
+                        pair = pair & (d2g < rc2)
+                        w = (1.0 - _smoothstep5((torch.sqrt(d2g) - r0) / rw)
+                             ) / torch.pow(torch.clamp(d2g + s2c, min=1e-30),
+                                           1.5)
+                        w = torch.where(pair, nb[:, 2] * w,
+                                        torch.zeros_like(w))
+                        acc[i:j, 0] += (w * ddx).sum(-1)
+                        acc[i:j, 1] += (w * ddy).sum(-1)
+            parts.append(acc.to(dev, non_blocking=True))
+        acc = torch.cat(parts) if len(parts) > 1 else parts[0]
         return torch.where(res[:, None], acc, torch.zeros_like(acc))
 
     def overflow_fraction(pos) -> float:

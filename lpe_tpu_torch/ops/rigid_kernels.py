@@ -13,7 +13,10 @@ version of a row is the vmapped XLA pair it stands in for:
   rows' slots and reads the shapes by slot itself: the CUDA kernel
   ``csrc/narrowphase_grid.cu``, plain version ``narrowphase_grid_plain``
   (``grid_rows``'s gathers, then ``narrowphase_plain``). It also returns
-  the rows' side-A and side-B positions, which the solvers read.
+  the rows' side-A and side-B positions, which the solvers read. It takes
+  the whole grid or a y-row band of it (``grid_band``: the band's rows and
+  the row below them, the multi-device rigid pipeline's), with the
+  partner row wrapped over the rows its grids hold.
 
 Each launches its kernel (built by ``_build.py``) for CUDA tensors and
 runs its plain version for CPU tensors; any other device raises, and a
@@ -97,23 +100,28 @@ def _row_outputs(N, dev):
 def grid_gather(grids, bigs, ka, kb, *, nbx, layout):
     """Fields of each candidate row's two bodies, gathered from the body
     grids by slot: (the fields of side A, the same of side B), each
-    [NC * R, ...], the rows of cell c at c * R .. c * R + R - 1. ``grids``
-    are fields [NC, KB, ...] of the bodies in their cells' slots, NC =
-    nbx * nbx cells in row-major (y, x) order; ``bigs`` the same fields
-    [NBIG, ...] of the big bodies. ka, kb [NC, R] int32: a row's slot on
-    side A (its own cell) and on side B. ``layout`` gives the row classes
-    in row order as (rows, dx, dy, big): side B of a row of class (dx, dy)
-    lies in cell ((cy + dy) mod nbx, (cx + dx) mod nbx), of a big class
-    (``big`` true) in the big bodies, at index kb."""
+    [NR * R, ...], the rows of cell c at c * R .. c * R + R - 1. ``grids``
+    are fields [NC, KB, ...] of the bodies in their cells' slots, NC = ny
+    * nbx cells in row-major (y, x) order; ``bigs`` the same fields
+    [NBIG, ...] of the big bodies. ka, kb [NR, R] int32, NR = rows * nbx:
+    the rows of the grids' first ``rows`` cell rows, a row's slot on side A
+    (its own cell) and on side B. ``layout`` gives the row classes in row
+    order as (rows, dx, dy, big): side B of a row of class (dx, dy) lies in
+    cell ((cy + dy) mod ny, (cx + dx) mod nbx), of a big class (``big``
+    true) in the big bodies, at index kb. The whole grid has ny = rows =
+    nbx; a y-row band (``grid_band``) its own rows and the row below them,
+    ny = rows + 1."""
     NC, KB = grids[0].shape[:2]
+    ny = NC // nbx
+    NR = ka.shape[0]
     dev = ka.device
-    cell = torch.arange(NC, device=dev)
+    cell = torch.arange(NR, device=dev)
     cy, cx = cell // nbx, cell % nbx
     base = []
     for rows, dx, dy, big in layout:
         b = torch.full_like(cell, NC * KB) if big else \
-            ((cy + dy) % nbx * nbx + (cx + dx) % nbx) * KB
-        base.append(b[:, None].expand(NC, rows))
+            ((cy + dy) % ny * nbx + (cx + dx) % nbx) * KB
+        base.append(b[:, None].expand(NR, rows))
     ia = (cell[:, None] * KB + ka.long()).reshape(-1)
     ib = (torch.cat(base, dim=1) + kb.long()).reshape(-1)
     side_a, side_b = [], []
@@ -124,13 +132,35 @@ def grid_gather(grids, bigs, ka, kb, *, nbx, layout):
     return tuple(side_a), tuple(side_b)
 
 
+def band_cells(nbx, r0, rows, device):
+    """The cells a y-row band of the nbx x nbx grid holds, in its order:
+    its own rows [r0, r0 + rows), then the row below them, (r0 + rows) mod
+    nbx (int64 [(rows + 1) * nbx])."""
+    h = (r0 + rows) % nbx
+    return torch.cat([torch.arange(r0 * nbx, (r0 + rows) * nbx,
+                                   device=device),
+                      torch.arange(h * nbx, (h + 1) * nbx, device=device)])
+
+
+def grid_band(nargs, *, nbx, r0, rows):
+    """The arguments of ``narrowphase_grid`` (the whole grid's ``nargs``:
+    grids [NC, KB, ...], big bodies, ka, kb [NC, R]) for the y-row band of
+    cell rows [r0, r0 + rows): its grids with the row below it
+    (``band_cells``), the big bodies, the band's rows of ka and kb. Its
+    outputs are the whole grid's rows of those cells."""
+    cells = band_cells(nbx, r0, rows, nargs[0].device)
+    own = slice(r0 * nbx, (r0 + rows) * nbx)
+    return (*(g.index_select(0, cells) for g in nargs[:4]), *nargs[4:8],
+            nargs[8][own], nargs[9][own])
+
+
 def grid_rows(g_pos, g_ang, g_verts, g_nverts, big_pos, big_ang, big_verts,
               big_nverts, ka, kb, *, nbx, layout):
     """The two shapes of each candidate row, gathered from the body grids
     by slot (``grid_gather``): ((pos, angle, verts, nverts) of side A, the
     same of side B). g_pos [NC, KB, 2], g_ang [NC, KB], g_verts [NC, KB,
-    V, 2] (local), g_nverts [NC, KB] int32; big_* the same of the NBIG big
-    bodies."""
+    V, 2] (local), g_nverts [NC, KB] int32 (NC = ny * nbx); big_* the same
+    of the NBIG big bodies; ka, kb [rows * nbx, R]."""
     return grid_gather((g_pos, g_ang, g_verts, g_nverts),
                        (big_pos, big_ang, big_verts, big_nverts), ka, kb,
                        nbx=nbx, layout=layout)
@@ -140,8 +170,8 @@ def narrowphase_grid_plain(g_pos, g_ang, g_verts, g_nverts, big_pos,
                            big_ang, big_verts, big_nverts, ka, kb, *, nbx,
                            layout):
     """``narrowphase_plain`` on the rows of ``grid_rows`` (same arguments):
-    (hit, nrm, pen, pts, pens, cval, pos_a [NC * R, 2], pos_b [NC * R,
-    2])."""
+    (hit, nrm, pen, pts, pens, cval, pos_a [NR * R, 2], pos_b [NR * R,
+    2]), NR = ka.shape[0]."""
     a, b = grid_rows(g_pos, g_ang, g_verts, g_nverts, big_pos, big_ang,
                      big_verts, big_nverts, ka, kb, nbx=nbx, layout=layout)
     return (*narrowphase_plain(*a, *b), a[0], b[0])
@@ -174,12 +204,17 @@ def _narrowphase_grid_cuda(g_pos, g_ang, g_verts, g_nverts, big_pos,
                            layout):
     from . import _build
     NC, KB, V = g_verts.shape[:3]
-    NBIG, R = big_ang.shape[0], ka.shape[1]
+    NBIG, (NR, R) = big_ang.shape[0], ka.shape
+    ny, rows = NC // nbx, NR // nbx
     _check_v("narrowphase_grid", V)
-    if nbx * nbx != NC or sum(c[0] for c in layout) != R or \
+    if ny * nbx != NC or rows * nbx != NR or not 1 <= rows <= ny:
+        raise ValueError(f"narrowphase_grid: grids of {NC} cells and rows "
+                         f"of {NR} are not whole rows of {nbx} cells, the "
+                         "rows' cells among the grids'")
+    if sum(c[0] for c in layout) != R or \
             not 1 <= len(layout) <= _build.NG_MAX_CLS:
         raise ValueError(f"narrowphase_grid: layout {layout} does not "
-                         f"give {R} rows to each of {nbx}x{nbx} cells")
+                         f"give {R} rows to each cell")
     for name, t, shape, dtype in (
             ("g_pos", g_pos, (NC, KB, 2), torch.float32),
             ("g_ang", g_ang, (NC, KB), torch.float32),
@@ -189,20 +224,20 @@ def _narrowphase_grid_cuda(g_pos, g_ang, g_verts, g_nverts, big_pos,
             ("big_ang", big_ang, (NBIG,), torch.float32),
             ("big_verts", big_verts, (NBIG, V, 2), torch.float32),
             ("big_nverts", big_nverts, (NBIG,), torch.int32),
-            ("ka", ka, (NC, R), torch.int32),
-            ("kb", kb, (NC, R), torch.int32)):
+            ("ka", ka, (NR, R), torch.int32),
+            ("kb", kb, (NR, R), torch.int32)):
         _check(f"narrowphase_grid {name}", t, shape, dtype)
     # cos and sin exactly as the plain version (geometry.world_verts)
     # takes them, once a body
     ang = torch.cat([g_ang.reshape(-1), big_ang])
     cs, sn = torch.cos(ang), torch.sin(ang)
-    outs = _row_outputs(NC * R, g_pos.device)
-    pos_a = torch.empty((NC * R, 2), dtype=torch.float32,
+    outs = _row_outputs(NR * R, g_pos.device)
+    pos_a = torch.empty((NR * R, 2), dtype=torch.float32,
                         device=g_pos.device)
     pos_b = torch.empty_like(pos_a)
     ends, nsb = grid_passes(KB, NBIG, V, layout)
     P = _build.NarrowGridParams(NC, KB, R, NBIG, nbx, V, len(layout),
-                                len(ends), nsb)
+                                len(ends), ny, rows, nsb)
     end = 0
     for c, (rows, dx, dy, big) in enumerate(layout):
         end += rows

@@ -50,6 +50,16 @@ class BandMesh:
         return moved
 
 
+def split_runs(starts, devices):
+    """Whole blocks to devices in contiguous runs: the block starts
+    ``starts`` cut into len(devices) runs as even as they come, in order,
+    each with its device (an empty run is left out)."""
+    n, D = len(starts), len(devices)
+    runs = [(dev, starts[d * n // D:(d + 1) * n // D])
+            for d, dev in enumerate(devices)]
+    return [(dev, run) for dev, run in runs if run]
+
+
 def make_mesh(n_devices: int | None = None, devices=None) -> BandMesh:
     """A mesh of ``n_devices`` bands. Without ``devices``, the first
     ``n_devices`` CUDA cards (all of them without ``n_devices``); it raises

@@ -1,9 +1,10 @@
 """A dry run of the multi-device path: the counterpart of
 ``__graft_entry__.py`` ``dryrun_multichip`` (lines 18-171).
-``dryrun_multichip(4)`` puts 4 bands of the fluid on the first CUDA card
+``dryrun_multichip(4)`` puts 4 bands on the first CUDA card
 (``device="cpu"`` on the CPU; ``devices=`` to list the bands' devices),
-runs 3 ticks of a coupled scene against the single-device tick and prints
-one line.
+runs 3 ticks of a coupled scene (the fluid in row bands), of a galaxy
+(gravity split by receiver blocks) and of a grid rigid scene (y-row
+bands) against the single-device tick and prints one line.
 """
 from __future__ import annotations
 
@@ -50,6 +51,51 @@ def tracer_scene(n_bands: int, *, device, particles: int = 200):
     return sc
 
 
+SHARD_GRID_SIZE = 3.0
+
+
+def shard_grid_scene(device, seed: int = 2):
+    """``lpe_tpu``'s SHARD_GRID scene (tests/test_parallel.py:66-104): four
+    walls and 96 random convex polygons in a 3 m box, moving and spinning,
+    on the grid rigid pipeline (``grid_pipeline="on"``, persist slack 0.04
+    m), built from ``seed`` as ``lpe_tpu`` builds it."""
+    from ..core import constants as C
+    from ..core.config import (BroadphaseConfig, RigidBodyConfig,
+                               ScenarioSystemConfig, SharedSystemConfig)
+    from ..math.polygon import (build_random_convex_polygon,
+                                calculate_polygon_inertia)
+    from ..scene import SceneBuilder
+    size = SHARD_GRID_SIZE
+    cfg = ScenarioSystemConfig(
+        shared=SharedSystemConfig(
+            universe_size_m=size, meters_per_pixel=size / C.SCREEN_LENGTH,
+            seconds_per_tick=1.0 / C.STEPS_PER_SECOND, time_acceleration=1.0,
+            grid_size=50, cell_size_pixels=C.SCREEN_LENGTH / 50),
+        rigid=RigidBodyConfig(
+            broadphase=BroadphaseConfig(max_pairs=4096,
+                                        persist_slack_m=0.04),
+            grid_pipeline="on"))
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder("SHARD_GRID")
+    for wall in ((0.0, size / 2, 0.05, size / 2),
+                 (size, size / 2, 0.05, size / 2),
+                 (size / 2, 0.0, size / 2, 0.05),
+                 (size / 2, size, size / 2, 0.05)):
+        b.add_wall(*wall)
+    for _ in range(96):
+        sz = rng.uniform(0.05, 0.12)
+        verts = build_random_convex_polygon(rng, sz)
+        mass = max(0.1, rng.normal(1.0, 0.1))
+        b.add(pos=(rng.uniform(size * 0.1, size * 0.9),
+                   rng.uniform(size * 0.1, size * 0.9)),
+              vel=(rng.uniform(-1, 1), rng.uniform(-1, 1)),
+              mass=mass, phase=int(C.Phase.SOLID),
+              shape_kind=int(C.ShapeKind.POLYGON), radius=sz, verts=verts,
+              inertia=calculate_polygon_inertia(verts, mass),
+              omega=rng.uniform(-1, 1))
+    return b.finalize(cfg, device=device)
+
+
 def band_of(state, spec, cfg, n_bands: int) -> np.ndarray:
     """The band (an equal slice of the universe in y) of each liquid
     particle."""
@@ -59,17 +105,19 @@ def band_of(state, spec, cfg, n_bands: int) -> np.ndarray:
 
 
 def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> dict:
-    """Run the coupled scene's fluid in ``n_devices`` row bands (on
-    ``devices``, else all on ``device``) for 3 ticks against the
-    single-device tick on the mesh's lead device, and assert:
+    """Run 3 ticks of three scenes over a mesh of ``n_devices`` bands (on
+    ``devices``, else all on ``device``) against the single-device tick on
+    the mesh's lead device, and assert:
 
-    - |dpos| < 5e-4 m and |dvel| < 5e-3 m/s over every active body;
-    - more than 0 liquid particles crossed a band;
-    - at least 2 bands hold liquid at the end.
+    - the coupled scene, its fluid in row bands: |dpos| < 5e-4 m and
+      |dvel| < 5e-3 m/s over every active body; more than 0 liquid
+      particles crossed a band; at least 2 bands hold liquid at the end;
+    - KEPLERIAN_DISK at 512 bodies, its direct sum split by receiver
+      blocks: equal to the single device to the bit (galaxy_rel_dpos 0);
+    - ``lpe_tpu``'s SHARD_GRID scene, the grid rigid pipeline in y-row
+      bands: |dpos| <= 1e-5 m, |dvel| and |domega| <= 1e-4
+      (tests/test_parallel.py:108-112); whether to the bit is printed.
 
-    Then KEPLERIAN_DISK at 512 bodies through ``build_sharded_tick``: it
-    has no liquid, so its gravity runs on the lead device (entity sharding
-    of gravity is not ported), and it is compared with the plain tick.
     Prints one line and returns its numbers."""
     from ..core.constants import SimulationType
     from ..scenarios import create_scenario
@@ -82,20 +130,26 @@ def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> dict:
                      [torch.device(device)] * n_devices)
     lead = mesh.lead
 
-    ref = tracer_scene(n_devices, device=lead)
-    ref_tick = build_tick_fn(ref.spec, ref.cfg, device=lead)
-    s_ref = ref.state
-    for _ in range(TICKS):
-        s_ref = ref_tick(s_ref)
+    def both(make):
+        """3 ticks of a fresh scene from ``make`` on the lead device and
+        over the mesh: (scene, single-device state, mesh state, the mesh's
+        tick)."""
+        ref = make()
+        ref_tick = build_tick_fn(ref.spec, ref.cfg, device=lead)
+        s_ref = ref.state
+        for _ in range(TICKS):
+            s_ref = ref_tick(s_ref)
+        scene = make()
+        tick = build_sharded_tick(scene, mesh)
+        state = shard_state(mesh, scene.state)
+        for _ in range(TICKS):
+            state = tick(state)
+        return scene, s_ref, state, tick
 
-    scene = tracer_scene(n_devices, device=lead)
+    scene, s_ref, state, tick = both(
+        lambda: tracer_scene(n_devices, device=lead))
     if not uses_bands(scene, mesh):
         raise AssertionError(f"{mesh} does not run the fluid in bands")
-    tick = build_sharded_tick(scene, mesh)
-    state = shard_state(mesh, scene.state)
-    for _ in range(TICKS):
-        state = tick(state)
-
     act = scene.state.bodies.active
     p_sh, v_sh = state.bodies.pos[act], state.bodies.vel[act]
     if not (bool(torch.isfinite(p_sh).all())
@@ -114,34 +168,46 @@ def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> dict:
     assert crossings > 0, (
         "no particle crossed a band boundary: halo rows never exercised")
 
-    def galaxy():
-        return create_scenario(SimulationType.KEPLERIAN_DISK, seed=2,
-                               device=lead,
-                               ec=KeplerianDiskConfig(particle_count=512))
-
-    gal = galaxy()
-    g_tick = build_tick_fn(gal.spec, gal.cfg, device=lead)
-    g_ref = gal.state
-    for _ in range(TICKS):
-        g_ref = g_tick(g_ref)
-    gal2 = galaxy()
-    gs_tick = build_sharded_tick(gal2, mesh)
-    g_sh = shard_state(mesh, gal2.state)
-    for _ in range(TICKS):
-        g_sh = gs_tick(g_sh)
+    gal, g_ref, g_sh, g_tick = both(lambda: create_scenario(
+        SimulationType.KEPLERIAN_DISK, seed=2, device=lead,
+        ec=KeplerianDiskConfig(particle_count=512)))
+    g_step = g_tick.systems["barnes_hut"]
+    if g_step.devices is None:
+        raise AssertionError(f"{mesh} does not split the galaxy's gravity")
+    g_blocks = -(-gal.spec.capacity // g_step.chunk)
     ga = gal.state.bodies.active
     gp_r, gp_s = g_ref.bodies.pos[ga], g_sh.bodies.pos[ga]
     scale = float(gp_r.abs().max())
     gdp = float((gp_s - gp_r).abs().max()) / max(scale, 1e-30)
     assert bool(torch.isfinite(gp_s).all())
-    assert gdp < 1e-5, f"galaxy relative deviation {gdp:.2e}"
+    assert gdp == 0.0, f"galaxy relative deviation {gdp:.2e}"
+
+    grid, r_ref, r_sh, r_tick = both(lambda: shard_grid_scene(lead))
+    r_step = r_tick.systems["rigid"]
+    if r_step.bands != n_devices:
+        raise AssertionError(f"{mesh} does not run the grid rigid "
+                             f"pipeline in bands")
+    gaps = {f: float((getattr(r_sh.bodies, f)
+                      - getattr(r_ref.bodies, f)).abs().max())
+            for f in ("pos", "vel", "omega")}
+    rigid_bitwise = all(torch.equal(getattr(r_sh.bodies, f),
+                                    getattr(r_ref.bodies, f))
+                        for f in ("pos", "vel", "angle", "omega"))
+    assert gaps["pos"] <= 1e-5 and gaps["vel"] <= 1e-4 and \
+        gaps["omega"] <= 1e-4, f"grid rigid bands deviate: {gaps}"
 
     print(f"dryrun_multichip({n_devices}): OK — {TICKS} coupled "
           f"fluid+rigid ticks, {scene.spec.capacity} entities, the fluid "
           f"in {n_devices} row bands on {[str(d) for d in mesh.devices]}; "
           f"max |dpos|={dp:.2e} m, max |dvel|={dv:.2e} m/s vs single-device;"
           f" {crossings} band crossings, per-band occupancy {occ.tolist()};"
-          f" galaxy-512 rel |dpos|={gdp:.2e} (gravity on the lead device: "
-          f"entity sharding not ported)", flush=True)
+          f" galaxy-512 rel |dpos|={gdp:.2e} (its direct sum's {g_blocks} "
+          f"receiver block(s) over the mesh); SHARD_GRID "
+          f"{grid.spec.n_solid} solids in "
+          f"{n_devices} y-row bands: max |dpos|={gaps['pos']:.2e} m, "
+          f"|dvel|={gaps['vel']:.2e} m/s, |domega|={gaps['omega']:.2e} "
+          f"rad/s, bitwise {rigid_bitwise}, {r_step.halo_stats['copies']} "
+          f"row exchanges", flush=True)
     return dict(dpos=dp, dvel=dv, crossings=crossings, occupancy=occ.tolist(),
-                galaxy_rel_dpos=gdp)
+                galaxy_rel_dpos=gdp,
+                grid_rigid=dict(gaps, bitwise=rigid_bitwise))

@@ -3,8 +3,9 @@
     python3 -m lpe_tpu_torch.profile_tick [SCENE ...]
 
 SCENE is any of dam, dam_split, dam_scatter, dam_mixed_h, dam_bands2,
-dam_bands4, simple_fluid, rigid, coupled, highlight, north, keplerian,
-ocean, galaxy_direct, galaxy (all by default).
+dam_bands4, simple_fluid, rigid, rigid_bands2, rigid_bands4, coupled,
+highlight, north, north_bands4, keplerian, ocean, galaxy_direct,
+galaxy_direct_shards4, galaxy, galaxy_shards4 (all by default).
 
 A block is 10 ticks: one ``build_run_fn(ticks=10)`` call for DAM_BREAK
 100k (the grid stays resident across the block), RIGID_STACKS 10k (the
@@ -23,9 +24,14 @@ the same dam with its odd-indexed particles at smoothing length 0.04
 (chip_smoke.py phase 22's scene; mixed h takes the mixed-h split chain);
 ``dam_bands2`` and ``dam_bands4`` run the split dam in 2 and 4 row bands
 (``parallel.sharded.build_sharded_run``: the multi-device fluid,
-chip_smoke.py phase 23), a band a card on a host with that many cards
-(``parallel.make_mesh``), else all on the one card. Device time sums over
-the cards.
+chip_smoke.py phase 23). ``rigid_bands2`` and ``rigid_bands4`` run
+RIGID_STACKS 10k's grid rigid pipeline in 2 and 4 y-row bands,
+``galaxy_direct_shards4`` and ``galaxy_shards4`` the two galaxies with
+their gravity split by receiver blocks over 4 devices, ``north_bands4``
+the north star with its fluid and its grid rigids both in 4 bands (entity
+sharding, chip_smoke.py phase 24). Each mesh puts a band a card on a host
+with that many cards (``parallel.make_mesh``), else all on the one card.
+Device time sums over the cards.
 For each it prints
 
 - ticks/s of 3 timed runs of 5 blocks each (host clock around
@@ -78,6 +84,11 @@ DAM_FLUID = {   # scene name -> FluidConfig fields of that dam configuration
 }
 MIXED_SMALL_H = 0.04   # dam_mixed_h: the odd-indexed particles' h
 DAM_BANDS = {"dam_bands2": 2, "dam_bands4": 4}   # scene -> row bands
+# entity sharding: scene -> (the single-device scene it splits, devices)
+SHARDED = {"rigid_bands2": ("rigid", 2), "rigid_bands4": ("rigid", 4),
+           "north_bands4": ("north", 4),
+           "galaxy_direct_shards4": ("galaxy_direct", 4),
+           "galaxy_shards4": ("galaxy", 4)}
 RIGID_RANGES = ("rigid", "rigid.rows", "rigid.rebuild", "rigid.narrowphase")
 LIST_RANGES = ("rigid", "rigid.broadphase", "rigid.narrowphase",
                "rigid.compact", "rigid.velocity", "rigid.position")
@@ -104,6 +115,17 @@ LABELS = {"dam": f"DAM_BREAK {DAM_N}",
           "keplerian": "KEPLERIAN_DISK", "ocean": "PLANETARY_OCEAN",
           "galaxy_direct": f"GALAXY {DAM_N} (direct sum)",
           "galaxy": "GALAXY 1000000 (P3M)"}
+LABELS.update({k: f"{LABELS[base]}, {D} " + ("shards" if "shards" in k
+                                             else "bands")
+               for k, (base, D) in SHARDED.items()})
+
+
+def _mesh(D, device):
+    """D bands: a card each where the host has that many, else all on
+    ``device``."""
+    from .parallel import make_mesh
+    return make_mesh(D) if torch.cuda.device_count() >= D else \
+        make_mesh(devices=[device] * D)
 
 
 def _scene(name, device):
@@ -124,15 +146,17 @@ def _scene(name, device):
                                                        **DAM_FLUID[name]))
         return sc, build_run_fn(sc.spec, cfg, ticks=BLOCK, device=device)
     if name in DAM_BANDS:
-        from .parallel import make_mesh
         from .parallel.sharded import build_sharded_run
         sc = build_dam_break(DAM_N, device=device)
         sc.cfg = sc.cfg.replace(fluid=dataclasses.replace(
             sc.cfg.fluid, pair_backend="pallas"))
-        D = DAM_BANDS[name]
-        mesh = make_mesh(D) if torch.cuda.device_count() >= D else \
-            make_mesh(devices=[device] * D)
-        return sc, build_sharded_run(sc, mesh, ticks=BLOCK)
+        return sc, build_sharded_run(sc, _mesh(DAM_BANDS[name], device),
+                                     ticks=BLOCK)
+    if name in SHARDED:
+        from .parallel.sharded import build_sharded_run
+        base, D = SHARDED[name]
+        sc, _ = _scene(base, device)
+        return sc, build_sharded_run(sc, _mesh(D, device), ticks=BLOCK)
     if name == "rigid":
         sc = build_rigid_stacks(RIGID_N, device=device)
         return sc, build_run_fn(sc.spec, sc.cfg, ticks=BLOCK, device=device)
@@ -211,7 +235,9 @@ def profile_scene(name, device):
     state = block(sc.state)                     # warm-up block
     torch.cuda.synchronize()
     label = LABELS[name]
-    mesh = getattr(getattr(block, "systems", {}).get("fluid"), "mesh", None)
+    meshes = [getattr(st, "mesh", None)
+              for st in getattr(block, "systems", {}).values()]
+    mesh = next((m for m in meshes if m is not None), None)
     if mesh is not None:
         label += f" on {len(set(mesh.devices))} card(s)"
     rigid = getattr(block, "systems", {}).get("rigid")
@@ -273,7 +299,7 @@ def profile_scene(name, device):
                   f"{k.removeprefix('rigid.')} {rt[k] / 1e3 / BLOCK:.4f} "
                   f"[{nl[k] / BLOCK:.0f}]" for k in LIST_RANGES)
               + f"; guard host reads {rigid.guard_reads}", flush=True)
-    if name in ("rigid", "north"):
+    if SHARDED.get(name, (name,))[0] in ("rigid", "north"):
         rt = {k: v / 1e3 / BLOCK for k, v in _range_times(prof).items()}
         solver = rt["rigid"] - rt["rigid.rows"] - rt["rigid.narrowphase"]
         npk = per_tick.get("narrowphase_kernel", 0.0) + \
@@ -291,7 +317,7 @@ def profile_scene(name, device):
 def main(argv=None):
     import sys
     names = (*DAM_FLUID, *DAM_BANDS, "simple_fluid", "rigid", *BENCH_SCENES,
-             *CATALOG)
+             *CATALOG, *SHARDED)
     want = list(sys.argv[1:] if argv is None else argv) or names
     if set(want) - set(names):
         raise SystemExit(f"profile_tick: scenes are {', '.join(names)}")

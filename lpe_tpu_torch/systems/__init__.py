@@ -25,7 +25,11 @@ from .barnes_hut import make_barnes_hut
 
 
 def build_system_list(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
-                      device, fluid_mesh=None):
+                      device, fluid_mesh=None, mesh=None):
+    """The scene's systems in tick order, as (name, step). ``fluid_mesh``
+    runs the fluid in row bands over its devices; ``mesh`` splits the
+    grid rigid pipeline (y-row bands) and gravity (receiver blocks) over
+    its devices (``parallel.sharded``)."""
     from .fluid import make_fluid
     from .rigid import make_rigid
 
@@ -38,8 +42,8 @@ def build_system_list(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     addn("fluid", make_fluid(spec, cfg, device=device, mesh=fluid_mesh))
     addn("boundary", simple.make_boundary(spec, cfg))
     addn("gravity", simple.make_gravity(spec, cfg))
-    addn("rigid", make_rigid(spec, cfg, device=device))
-    addn("barnes_hut", make_barnes_hut(spec, cfg, device=device))
+    addn("rigid", make_rigid(spec, cfg, device=device, mesh=mesh))
+    addn("barnes_hut", make_barnes_hut(spec, cfg, device=device, mesh=mesh))
     addn("rotation", simple.make_rotation(spec, cfg))
     addn("movement", simple.make_movement(spec, cfg))
     addn("sleep", simple.make_sleep(spec, cfg))
@@ -47,9 +51,9 @@ def build_system_list(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
 
 
 def build_tick_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
-                  device="cuda", fluid_mesh=None):
+                  device="cuda", fluid_mesh=None, mesh=None):
     systems = build_system_list(spec, cfg, device=device,
-                                fluid_mesh=fluid_mesh)
+                                fluid_mesh=fluid_mesh, mesh=mesh)
 
     def tick(state: SimState) -> SimState:
         for name, fn in systems:
@@ -62,7 +66,7 @@ def build_tick_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
 
 
 def build_run_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *, ticks: int,
-                 device="cuda", fluid_mesh=None):
+                 device="cuda", fluid_mesh=None, mesh=None):
     """Advance ``ticks`` ticks per call.
 
     When the fluid runs grid-resident and no other system needs per-tick
@@ -73,7 +77,7 @@ def build_run_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *, ticks: int,
     space (sph.py grid_boundary/grid_gravity). See
     FluidConfig.cross_tick_residency."""
     systems = build_system_list(spec, cfg, device=device,
-                                fluid_mesh=fluid_mesh)
+                                fluid_mesh=fluid_mesh, mesh=mesh)
     sysd = dict(systems)
     fl = sysd.get("fluid")
     cross_tick = (getattr(fl, "grid_build", None) is not None

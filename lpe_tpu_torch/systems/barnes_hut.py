@@ -18,6 +18,12 @@ above it; receivers are active non-boundary bodies; the system is off when
 every non-boundary mass is below the threshold (decided at build time,
 since masses never change). Both solvers are plain PyTorch: lpe_tpu runs
 them as XLA, not as Pallas kernels.
+
+Over a mesh of several devices (``parallel.sharded``) the receivers are
+split as lpe_tpu's GSPMD splits the O(N^2) tiles, by whole blocks: the
+direct sum's row blocks and the PP passes go to the devices in contiguous
+runs; a block is the same launch on the same shape wherever it runs, so
+each body's sum, and the result, is one device's to the bit.
 """
 from __future__ import annotations
 
@@ -27,37 +33,59 @@ from ..core.config import ScenarioSystemConfig
 from ..core.constants import REAL_G
 from ..ops.pm_gravity import (make_heavy_direct, make_pm_gravity,
                               make_pp_correction)
+from ..parallel import split_runs
 from ..scene import SceneSpec
 from ..state import SimState
 
+# the direct sum's row block: chunk = max(128, min(n, this // n * 8)) rows
+DIRECT_BLOCK_ELEMS = 1 << 25
 
-def _direct_sum_accel(pos, mass, src_mask, rcv_mask, soft2, chunk: int):
+
+def _direct_sum_accel(pos, mass, src_mask, rcv_mask, soft2, chunk: int,
+                      devices=None):
     """Acceleration on every body from the masked sources, O(N^2), in row
-    blocks of ``chunk`` receivers ([chunk, N] temporaries)."""
+    blocks of ``chunk`` receivers ([chunk, N] temporaries). With
+    ``devices`` (a list), the blocks go to them in contiguous runs
+    (``split_runs``): each device takes its own copy of ``pos`` and the
+    masked masses and computes its blocks, which come back to ``pos``'s
+    device and are joined in block order. The blocks and their shapes do
+    not depend on the devices, so neither do the bits."""
     n = pos.shape[0]
     msrc = torch.where(src_mask, mass, torch.zeros_like(mass))
     blocks = []
-    for a in range(0, n, chunk):
-        p_blk = pos[a:a + chunk]
-        dx = pos[None, :, 0] - p_blk[:, None, 0]      # [B, N]
-        dy = pos[None, :, 1] - p_blk[:, None, 1]
-        d2 = dx * dx + dy * dy + soft2
-        inv_d = torch.rsqrt(d2)
-        # force/m_i along (dx,dy)/d with magnitude m_j/d2; G once below
-        w = msrc[None, :] * inv_d / d2
-        w.diagonal(offset=a).fill_(0.0)              # no self pair: (i, a+i)
-        blocks.append(torch.stack([(w * dx).sum(1), (w * dy).sum(1)], -1))
+    for dev, run in split_runs(list(range(0, n, chunk)),
+                               devices or [pos.device]):
+        p = pos.to(dev, non_blocking=True)
+        ms = msrc.to(dev, non_blocking=True)
+        for a in run:
+            p_blk = p[a:a + chunk]
+            dx = p[None, :, 0] - p_blk[:, None, 0]        # [B, N]
+            dy = p[None, :, 1] - p_blk[:, None, 1]
+            d2 = dx * dx + dy * dy + soft2
+            inv_d = torch.rsqrt(d2)
+            # force/m_i along (dx,dy)/d with magnitude m_j/d2; G once below
+            w = ms[None, :] * inv_d / d2
+            w.diagonal(offset=a).fill_(0.0)          # no self pair: (i, a+i)
+            blocks.append(torch.stack([(w * dx).sum(1), (w * dy).sum(1)],
+                                      -1).to(pos.device, non_blocking=True))
     acc = torch.cat(blocks) if len(blocks) > 1 else blocks[0]
     return REAL_G * acc * rcv_mask[:, None].to(acc.dtype)
 
 
 def make_barnes_hut(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
-                    device="cuda"):
+                    device="cuda", mesh=None):
     """The gravity step ``SimState -> SimState`` (a velocity kick), or
-    ``None`` when it is statically off. For diagnostics the step carries
-    ``masks(bodies) -> (sources, receivers)``, ``use_pm``, ``chunk`` (the
-    direct sum's row block), ``pp`` (the P3M branch's PP correction, with
-    its ``K``, ``subdivision``, ``ncells`` and ``overflow_fraction``;
+    ``None`` when it is statically off. Over a ``mesh`` (``parallel
+    .BandMesh``) of more than one device the receivers are split by whole
+    blocks: the direct sum's row blocks, and on the P3M branch the PP
+    correction's passes, go to the mesh's devices in contiguous runs
+    (``split_runs``), and the results come back to ``device`` in order; the
+    P3M mesh (its deposit sums over every body) and the heavy direct sum
+    stay on ``device``. The bits are those of one device. For diagnostics
+    the step carries ``masks(bodies) -> (sources, receivers)``,
+    ``use_pm``, ``chunk`` (the direct sum's row block), ``devices`` (the
+    split's, or None), ``mesh``, ``pp`` (the P3M branch's PP correction,
+    with its ``K``, ``subdivision``, ``ncells`` and ``overflow_fraction``;
     ``None`` on the direct sum or without one) and, on the P3M branch,
     ``pm`` and ``heavy_direct``."""
     bh = cfg.barnes_hut
@@ -69,8 +97,10 @@ def make_barnes_hut(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     size = sh.universe_size_m
     base_dt = sh.seconds_per_tick
     n = spec.capacity
-    chunk = max(128, min(n, (1 << 25) // max(n, 1) // 1 * 8))
+    chunk = max(128, min(n, DIRECT_BLOCK_ELEMS // max(n, 1) * 8))
     use_pm = n > bh.direct_sum_max_bodies
+    devices = list(mesh.devices) if mesh is not None and mesh.size > 1 \
+        else None
     pp = None
     if use_pm:
         pm = make_pm_gravity(size, bh.pm_grid, sh.gravitational_softener,
@@ -79,7 +109,7 @@ def make_barnes_hut(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             pp = make_pp_correction(size, bh.pm_grid,
                                     sh.gravitational_softener,
                                     bh.p3m_cutoff_cells, bh.p3m_max_per_cell,
-                                    n_bodies=n)
+                                    n_bodies=n, devices=devices)
         heavy_direct = make_heavy_direct(bh.heavy_cap,
                                          sh.gravitational_softener)
 
@@ -105,11 +135,13 @@ def make_barnes_hut(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                 acc = acc + pp(b.pos, mesh_mass)
             acc = REAL_G * acc * rcv[:, None].to(acc.dtype)
         else:
-            acc = _direct_sum_accel(b.pos, b.mass, src, rcv, soft2, chunk)
+            acc = _direct_sum_accel(b.pos, b.mass, src, rcv, soft2, chunk,
+                                    devices)
         vel = b.vel + acc * dt
         return state.replace(bodies=b.replace(vel=vel))
 
     step.masks, step.pp, step.use_pm, step.chunk = masks, pp, use_pm, chunk
+    step.devices, step.mesh = devices, mesh if devices else None
     if use_pm:
         step.pm, step.heavy_direct = pm, heavy_direct
     return step

@@ -365,13 +365,17 @@ def make_fluid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             ``nrows`` padded rows from global padded row ``row_off`` (the
             whole grid: ``rows`` from 0; a band: ``band + 2`` from its
             first row), on ``dev``: each row's candidate window (the
-            bucket span of its chunk, whose origin ``lpe_tpu`` takes from
-            the block, sph.py:856) and the extents of its rows and
-            columns, for _couple_field and _cpl_mask."""
+            bucket span of its chunk of the whole grid) and the extents
+            of its rows and columns, for _couple_field and _cpl_mask.
+            ``lpe_tpu`` takes a band row's chunk origin from the band's
+            block (sph.py:856); where a window saturates its cap, its
+            bands then keep other candidates than its single device. The
+            whole grid's origin keeps a band row's window, and so its
+            candidates, the single device's."""
             rowi = torch.arange(nrows, device=dev)
             coli = torch.arange(W, device=dev)
             g = rowi + row_off                       # global padded row
-            g0 = (rowi // _CH) * _CH + row_off       # its chunk's origin
+            g0 = (g // _CH) * _CH                    # its chunk's origin
             gf = g.to(f32)
             cx0 = (coli.to(f32) - 3.0) * cell - _slackm
             mx0 = (coli - 4).to(f32) * cell

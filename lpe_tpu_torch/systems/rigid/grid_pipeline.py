@@ -42,10 +42,28 @@ Scenes with circle solids, or with ``max_contacts_per_pair != 2``, take
 the plain geometry path in place of the kernel (``geometry.sat_contact``
 with its circle branches, then ``pipeline._pair_contacts``), as lpe_tpu
 takes its XLA path there.
+
+Over a ``mesh`` of D > 1 devices whose size divides nbx, the tick runs in
+y-row bands, the split of lpe_tpu's ``rg_*`` cell axis
+(``parallel.sharded``). The guard and the rebuild stay whole on the lead
+device; band i takes cell rows [i nbx/D, (i+1) nbx/D) of the candidate
+rows, the warm starts and the body grids, and the row below them (the
+halo row: the forward half-stencil's partners lie at dy in {0, 1}; the
+last band's is row 0, so the whole grid's wrap is kept). A band runs the
+narrowphase on its rows, the warm start, the row constants and the
+solvers on its grids, which wrap over its own rows (``_Part``). In a
+class pass with dy = 1 each band's halo row first takes the next band's
+first row (``refresh``), and after the pass the increments a band rolled
+into its halo row go to the next band's first row (``pass_on``), added
+after the cell's own, in the single device's order. Velocities,
+positions and warm starts come back to the lead in cell order. Every op
+is per cell or per row, so the bands give the single device's bits;
+``step.halo_stats`` counts the exchanges.
 """
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 from torch.profiler import record_function
@@ -58,6 +76,7 @@ from ...state import SimState
 from . import geometry as geo
 from .pipeline import _aabbs, _pair_contacts, _solid_shapes
 from .solver import match_warm_impulses
+from ...ops.rigid_kernels import band_cells
 
 INF = 1e30
 # forward half-stencil (dx, dy): each unordered cell pair exactly once
@@ -160,8 +179,59 @@ def _cross2(a, b):
     return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
 
 
+class _Part:
+    """The cells a part of the tick holds on its device ``dev``: cell rows
+    [r0, r0 + rows) of the nbx x nbx grid, which own candidate rows, and
+    ``halo`` (0 or 1) rows after them, which do not. The whole grid is r0
+    = 0, rows = nbx, halo = 0, on the lead device: then every method gives
+    its argument back, and the tick runs the single-device ops. A y-row
+    band holds the row below its own ((r0 + rows) mod nbx: the forward
+    half-stencil's partners lie at dy in {0, 1}), and its grids wrap over
+    its ny = rows + 1 rows, so that its own rows' partners are read from
+    the halo row, never wrapped."""
+
+    def __init__(self, dev, r0, rows, halo, nbx, lead):
+        self.dev = torch.device(dev)
+        self.r0, self.rows, self.halo, self.nbx = r0, rows, halo, nbx
+        self.ny = rows + halo
+        self.own = rows * nbx              # cells that own candidate rows
+        self.whole = halo == 0 and r0 == 0 and rows == nbx and \
+            self.dev == torch.device(lead)
+        self.cells = None if self.whole else \
+            band_cells(nbx, r0, rows, lead)
+
+    def to(self, t):
+        return t if self.whole else t.to(self.dev, non_blocking=True)
+
+    def cut(self, g):
+        """The part's cells [ny * nbx, ...] of a grid [NC, ...]."""
+        return g if self.whole else self.to(g.index_select(0, self.cells))
+
+    def rows_of(self, t):
+        """The own cells' [own, ...] of a row tensor [NC, ...]."""
+        return t if self.whole else self.to(
+            t[self.r0 * self.nbx:(self.r0 + self.rows) * self.nbx])
+
+    def own_cells(self, g):
+        return g if self.whole else g[:self.own]
+
+    def grow(self, y):
+        """An own-cells tensor [own, ...] with zeros for the halo row."""
+        if not self.halo:
+            return y
+        return torch.nn.functional.pad(
+            y, (0, 0) * (y.dim() - 1) + (0, self.halo * self.nbx))
+
+    def roll(self, g, dx, dy):
+        """g[(cy + dy) mod ny, (cx + dx) mod nbx] at every cell."""
+        if dx == 0 and dy == 0:
+            return g
+        g2 = g.reshape((self.ny, self.nbx) + g.shape[1:])
+        return torch.roll(g2, (-dy, -dx), dims=(0, 1)).reshape(g.shape)
+
+
 def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
-                           device="cuda"):
+                           device="cuda", mesh=None):
     gd = grid_dims(spec, cfg)
     assert gd is not None
     S = spec.n_solid
@@ -367,17 +437,52 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                 torch.full((NC, R, C, 2), INF, dtype=f32, device=dev),
                 torch.zeros((NC, R, 2), dtype=f32, device=dev))
 
-    def roll_cells(g, dx, dy):
-        if dx == 0 and dy == 0:
-            return g
-        g2 = g.reshape((nbx, nbx) + g.shape[1:])
-        return torch.roll(g2, (-dy, -dx), dims=(0, 1)).reshape(g.shape)
+    # ------------------------------------------------------------- parts
+    whole = _Part(dev, 0, nbx, 0, nbx, dev)
+    n_bands = mesh.size if mesh is not None else 1
+    banded = n_bands > 1 and nbx % n_bands == 0
+    if banded:
+        rows_b = nbx // n_bands
+        parts = [_Part(d, i * rows_b, rows_b, 1, nbx, dev)
+                 for i, d in enumerate(mesh.devices)]
+    else:
+        parts = [whole]
+    # bytes and copies of the bands' exchanges, and the bytes the split
+    # moves to the bands and back, since the step was built
+    halo_stats = dict(bytes=0, copies=0, split_bytes=0)
+
+    def refresh(X):
+        """Each band's halo row <- the first row of the band after it
+        (cyclically: the last band's halo row is the grid's row 0)."""
+        for i, p in enumerate(parts):
+            src = X[(i + 1) % n_bands][:nbx]
+            X[i][p.own:].copy_(src, non_blocking=True)
+            halo_stats["bytes"] += src.numel() * src.element_size()
+            halo_stats["copies"] += 1
+
+    def pass_on(Y):
+        """Each band's first row <- what the band before it rolled into its
+        halo row: the increments of the cells of that row."""
+        for i, p in enumerate(parts):
+            src = Y[i][p.own:]
+            Y[(i + 1) % n_bands][:nbx].copy_(src, non_blocking=True)
+            halo_stats["bytes"] += src.numel() * src.element_size()
+            halo_stats["copies"] += 1
+
+    def gather(X):
+        """The parts' own cells of X, on the lead device in cell order."""
+        if not banded:
+            return X[0]
+        out = [p.own_cells(x).to(dev, non_blocking=True)
+               for p, x in zip(parts, X)]
+        halo_stats["split_bytes"] += sum(t.numel() * t.element_size()
+                                         for t in out)
+        return torch.cat(out)
 
     # ------------------------------------------------------------------ tick
     def _rows(state):
-        """The displacement guard, rebuild or reuse, the per-tick body
-        grids, the narrowphase's arguments (the shape grids and the rows'
-        slots) and the rows' masses and inertias."""
+        """The displacement guard, rebuild or reuse, and the per-tick body
+        grids (pos/angle/vel/omega), on the lead device."""
         b = state.bodies
         # displacement guard (pipeline.py:256-283 semantics)
         vmask = viota[None, :] < b.nverts[:S, None]
@@ -403,12 +508,9 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                      state.bp_anchor_pos[:S], state.bp_anchor_ang[:S],
                      state.rg_warm_n, state.rg_warm_t, state.rg_warm_pt,
                      state.rg_warm_nrm)
-        (flat, table, rg_ka, rg_kb, rg_valid, g_verts, g_nverts, g_radius,
-         g_iscirc, g_invm, g_invi, anc_p, anc_a,
-         warm_n, warm_t, warm_pt, warm_nrm) = grids
 
         # ---- per-tick body grids (pos/angle/vel/omega) ----
-        dst = torch.where(flat >= 0, flat, NC * KB).long()
+        dst = torch.where(grids[0] >= 0, grids[0], NC * KB).long()
 
         def tg(vals):
             g = torch.zeros((NC * KB + 1,) + vals.shape[1:], dtype=f32,
@@ -419,48 +521,76 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         g_pos = tg(b.pos[:S])
         g_ang = tg(b.angle[:S])
         g_u = tg(torch.cat([b.vel[:S], b.omega[:S, None]], dim=1))
+        return grids, (g_pos, g_ang, g_u)
 
-        # ---- the narrowphase's grids, and the rows' masses by slot ----
+    def _part_inputs(p, state, grids, tick_grids):
+        """What part ``p`` takes of the tick: its cells of the body grids
+        (the halo row's too), its own cells' candidate rows and warm
+        starts, the big bodies, the narrowphase's arguments and the rows'
+        masses and inertias, on its device."""
+        b = state.bodies
+        (_, _, rg_ka, rg_kb, rg_valid, g_verts, g_nverts, g_radius,
+         g_iscirc, g_invm, g_invi, _, _,
+         warm_n, warm_t, warm_pt, warm_nrm) = grids
+        g_pos, g_ang, g_u = tick_grids
+        w = SimpleNamespace()
+        cut, rows, to = p.cut, p.rows_of, p.to
+        w.ka, w.kb, w.rvalid = rows(rg_ka), rows(rg_kb), rows(rg_valid)
+        w.warm = tuple(rows(t) for t in (warm_n, warm_t, warm_pt, warm_nrm))
+        w.pos = cut(g_pos.reshape(NC, KB, 2))
+        w.u = cut(g_u.reshape(NC, KB, 3))
+        w.ang = cut(g_ang.reshape(NC, KB))
         big_pos, big_ang = b.pos[big_ids], b.angle[big_ids]
-        nargs = (g_pos.reshape(NC, KB, 2), g_ang.reshape(NC, KB),
-                 g_verts.reshape(NC, KB, VS, 2), g_nverts.reshape(NC, KB),
-                 big_pos, big_ang, b.verts[big_ids, :VS], b.nverts[big_ids],
-                 rg_ka, rg_kb)
-        big_shape = None
+        w.nargs = (w.pos, w.ang, cut(g_verts.reshape(NC, KB, VS, 2)),
+                   cut(g_nverts.reshape(NC, KB)), to(big_pos), to(big_ang),
+                   to(b.verts[big_ids, :VS]), to(b.nverts[big_ids]),
+                   w.ka, w.kb)
+        if plain_rows:
+            w.circ = (cut(g_radius.reshape(NC, KB)),
+                      cut(g_iscirc.reshape(NC, KB)),
+                      to(b.radius[big_ids]), to(_is_circle(b, big_ids)))
+        w.big = None
         if NBIG:
-            big_shape = dict(
+            w.big = dict(
                 pos=big_pos, angle=big_ang,
                 invm=_inv_mass(b)[big_ids], invi=_inv_inertia(b)[big_ids],
                 u=torch.cat([b.vel[big_ids], b.omega[big_ids, None]], dim=1))
-        Gim = g_invm.reshape(NC, KB)
-        Gii = g_invi.reshape(NC, KB)
-
+            w.big = {k: to(v) for k, v in w.big.items()}
+        if not p.whole:
+            halo_stats["split_bytes"] += sum(
+                t.numel() * t.element_size() for t in (
+                    *w.nargs, w.u, w.rvalid, *w.warm,
+                    *(w.circ if plain_rows else ())))
+        Gim = cut(g_invm.reshape(NC, KB))
+        Gii = cut(g_invi.reshape(NC, KB))
         row_imb, row_iib = [], []
         for cls in classes:
-            kb = rg_kb[:, cls["sl"]]
+            kb = w.kb[:, cls["sl"]]
             if cls["kind"] == "big":
                 kbl = kb.long()
-                row_imb.append(big_shape["invm"][kbl])
-                row_iib.append(big_shape["invi"][kbl])
+                row_imb.append(w.big["invm"][kbl])
+                row_iib.append(w.big["invi"][kbl])
             else:
                 dx, dy = cls["dx"], cls["dy"]
-                row_imb.append(_sel(roll_cells(Gim, dx, dy), kb))
-                row_iib.append(_sel(roll_cells(Gii, dx, dy), kb))
-        rows = (_sel(Gim, rg_ka), _sel(Gii, rg_ka),
-                torch.cat(row_imb, dim=1), torch.cat(row_iib, dim=1))
-        return grids, (g_pos, g_ang, g_u), nargs, rows, big_shape
+                row_imb.append(_sel(p.own_cells(p.roll(Gim, dx, dy)), kb))
+                row_iib.append(_sel(p.own_cells(p.roll(Gii, dx, dy)), kb))
+        w.im_a, w.ii_a = (_sel(p.own_cells(Gim), w.ka),
+                          _sel(p.own_cells(Gii), w.ka))
+        w.im_b, w.ii_b = torch.cat(row_imb, dim=1), torch.cat(row_iib, dim=1)
+        return w
 
-    def _plain_rows(b, nargs, g_radius, g_iscirc):
+    def _plain_rows(w):
         """The plain geometry narrowphase of the candidate rows (circles,
         any C): the outputs of ``narrowphase_grid``, contact masks without
         the hit."""
-        grids, bigs = list(nargs[:4]), list(nargs[4:8])
-        grids += [g_radius.reshape(NC, KB), g_iscirc.reshape(NC, KB)]
-        bigs += [b.radius[big_ids], _is_circle(b, big_ids)]
-        sides = rko.grid_gather(grids, bigs, *nargs[8:], nbx=nbx,
+        g_rad, g_circ, big_rad, big_circ = w.circ
+        grids, bigs = list(w.nargs[:4]), list(w.nargs[4:8])
+        grids += [g_rad, g_circ]
+        bigs += [big_rad, big_circ]
+        sides = rko.grid_gather(grids, bigs, *w.nargs[8:], nbx=nbx,
                                layout=layout)
         sa, sb = ({"pos": p, "angle": a, "verts": v, "nverts": n,
-                   "vmask": viota[None, :] < n[:, None],
+                   "vmask": viota[None, :].to(n.device) < n[:, None],
                    **({"radius": r, "is_circle": c} if circ else {})}
                   for p, a, v, n, r, c in sides)
         hit, nrm, pen = geo.sat_contact(sa, sb, any_circle=circ)
@@ -468,213 +598,274 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         return hit, nrm, pen, pts, pens, cval, sa["pos"], sb["pos"]
 
     def narrowphase_args(state):
-        """The arguments this state's tick hands the narrowphase: the
-        tensors and the keywords of ``rigid_kernels.narrowphase_grid``
-        (``rigid_kernels.grid_rows`` takes the same and gives the row-form
-        kernel's), and which rows are candidates (rg_valid [NC, R]). Runs
-        the guard (and the rebuild it may call for) as a tick would."""
-        grids, _, nargs, _, _ = _rows(state)
-        return nargs, dict(nbx=nbx, layout=layout), grids[4]
+        """The arguments this state's tick hands the narrowphase on the
+        whole grid: the tensors and the keywords of
+        ``rigid_kernels.narrowphase_grid`` (``rigid_kernels.grid_rows``
+        takes the same and gives the row-form kernel's; ``rigid_kernels
+        .grid_band`` cuts a band's from them), and which rows are
+        candidates (rg_valid [NC, R]). Runs the guard (and the rebuild it
+        may call for) as a tick would."""
+        grids, tick_grids = _rows(state)
+        w = _part_inputs(whole, state, grids, tick_grids)
+        return w.nargs, dict(nbx=nbx, layout=layout), grids[4]
+
+    def _contacts(p, w):
+        """The part's narrowphase results, warm start and per-row solver
+        constants (all per row: no exchange)."""
+        NR = p.own
+        hit, nrm, pen, pts, pens, cval, pos_a, pos_b = w.narrow
+        nrm = nrm.reshape(NR, R, 2)
+        valid = (w.rvalid & hit.reshape(NR, R))[..., None] \
+            & cval.reshape(NR, R, C)
+        # sanitize invalid rows: clipping on garbage slot-0 shapes can emit
+        # inf/NaN points, and NaN*0 would leak through the masked scatters
+        w.pts = torch.where(valid[..., None], pts.reshape(NR, R, C, 2), 0.0)
+        w.pens = torch.where(valid, pens.reshape(NR, R, C), 0.0)
+        w.valid = valid
+
+        # ---- warm start (slot-persistent; point-matched within pair) ----
+        if rc.warm_start:
+            warm_n, warm_t, warm_pt, warm_nrm = w.warm
+            ln0, lt0 = match_warm_impulses(
+                w.pts.reshape(NR * R, C, 2), nrm.reshape(NR * R, 2),
+                warm_pt.reshape(NR * R, C, 2), warm_nrm.reshape(NR * R, 2),
+                warm_n.reshape(NR * R, C), warm_t.reshape(NR * R, C),
+                torch.ones((NR * R,), dtype=torch.bool, device=p.dev),
+                tol=rc.warm_position_tolerance,
+                slot_fallback=rc.warm_slot_fallback)
+            w.ln0 = torch.where(valid, ln0.reshape(NR, R, C), 0.0)
+            w.lt0 = torch.where(valid, lt0.reshape(NR, R, C), 0.0)
+
+        # ---- per-row solver constants ----
+        w.nh = nh = geo._unit(nrm)
+        w.th = th = torch.stack([-nh[..., 1], nh[..., 0]], dim=-1)
+        w.ra = ra = w.pts - pos_a.reshape(NR, R, 1, 2)        # [NR,R,C,2]
+        w.rb = rb = w.pts - pos_b.reshape(NR, R, 1, 2)
+        w.ra_xn = _cross2(ra, nh[:, :, None, :])
+        w.rb_xn = _cross2(rb, nh[:, :, None, :])
+        w.ra_xt = _cross2(ra, th[:, :, None, :])
+        w.rb_xt = _cross2(rb, th[:, :, None, :])
+        # own-contact normal->tangent coupling (solver.py ctn)
+        w.ctn = (w.ra_xn * w.ra_xt * w.ii_a[..., None]
+                 + w.rb_xn * w.rb_xt * w.ii_b[..., None])
+
+    def degrees(W, counts):
+        """Mass-splitting degrees of each row's two bodies: the class's
+        contact count per body, at least 1; the big side is frozen. A
+        (dy = 1) class takes the partner counts of a band's last row into
+        the next band's first row, then the next band's totals of that row
+        into its halo row."""
+        dga = [torch.zeros((p.own, R), dtype=f32, device=p.dev)
+               for p in parts]
+        dgb = [torch.zeros((p.own, R), dtype=f32, device=p.dev)
+               for p in parts]
+        for cls in classes:
+            sl = cls["sl"]
+            d_own = [_scat(c[:, sl], w.ka[:, sl], KB)        # [own, KB]
+                     for c, w in zip(counts, W)]
+            if cls["kind"] == "big":
+                d_cls = d_own
+                for i, w in enumerate(W):
+                    dgb[i][:, sl] = 1.0
+            else:
+                dx, dy = cls["dx"], cls["dy"]
+                ysh = [p.roll(p.grow(_scat(c[:, sl], w.kb[:, sl], KB)),
+                              -dx, -dy)
+                       for p, c, w in zip(parts, counts, W)]
+                if banded and dy:
+                    pass_on(ysh)
+                d_cls = [p.grow(d) + y for p, d, y in zip(parts, d_own, ysh)]
+                if banded and dy:
+                    refresh(d_cls)
+                for i, (p, w) in enumerate(zip(parts, W)):
+                    dgb[i][:, sl] = torch.clamp(
+                        _sel(p.own_cells(p.roll(d_cls[i], dx, dy)),
+                             w.kb[:, sl]), min=1.0)
+            for i, (p, w) in enumerate(zip(parts, W)):
+                dga[i][:, sl] = torch.clamp(
+                    _sel(p.own_cells(d_cls[i]), w.ka[:, sl]), min=1.0)
+        return dga, dgb
+
+    def eff(im_a, im_b, ii_a, ii_b, rx_a, rx_b, dga, dgb):
+        s = (im_a * dga + im_b * dgb
+             + rx_a * rx_a * ii_a * dga + rx_b * rx_b * ii_b * dgb)
+        return torch.where(s < 1e-12, 0.0,
+                           true_div(1.0, torch.clamp(s, min=1e-12)))
+
+    def partner(p, X, cls, kb, big_x):
+        if cls["kind"] == "big":
+            return big_x[kb.long()]
+        return _sel(p.own_cells(p.roll(X, cls["dx"], cls["dy"])), kb)
+
+    def class_rel_vel(p, w, U, cls):
+        sl = cls["sl"]
+        ka, kb = w.ka[:, sl], w.kb[:, sl]
+        ua = _sel(p.own_cells(U), ka)                      # [own,Rc,3]
+        ub = partner(p, U, cls, kb, w.big["u"] if NBIG else None)
+        ra, rb = w.ra[:, sl], w.rb[:, sl]
+        va = ua[..., None, :2] + torch.stack(
+            [-ua[..., None, 2] * ra[..., 1], ua[..., None, 2] * ra[..., 0]],
+            -1)
+        vb = ub[..., None, :2] + torch.stack(
+            [-ub[..., None, 2] * rb[..., 1], ub[..., None, 2] * rb[..., 0]],
+            -1)
+        rv = vb - va                                          # [own,Rc,C,2]
+        return geo._dot2(rv, w.nh[:, sl, None, :]), \
+            geo._dot2(rv, w.th[:, sl, None, :])
+
+    def class_apply(W, X, cls, incs):
+        """X (a grid a part) plus the class's increments ``incs`` (a part's
+        (side A, side B or None for the big class) rows): each part's own
+        side, then the partner side rolled into the partner cells, which a
+        (dy = 1) class passes on from a band's halo row to the next band's
+        first row."""
+        sl = cls["sl"]
+        ysh = []
+        for i, (p, w, (da, db)) in enumerate(zip(parts, W, incs)):
+            X[i] = X[i] + p.grow(_scat(da, w.ka[:, sl], KB))
+            if db is not None:
+                ysh.append(p.roll(p.grow(_scat(db, w.kb[:, sl], KB)),
+                                  -cls["dx"], -cls["dy"]))
+        if ysh:
+            if banded and cls["dy"]:
+                pass_on(ysh)
+            X = [x + y for x, y in zip(X, ysh)]
+        return X
+
+    def vel_incr(w, cls, dln, dlt):
+        """A class's velocity increments of sides A and B (None: big)."""
+        sl = cls["sl"]
+        imp = (w.nh[:, sl, None, :] * dln[..., None]
+               + w.th[:, sl, None, :] * dlt[..., None])       # [own,Rc,C,2]
+        tq_a = w.ra_xn[:, sl] * dln + w.ra_xt[:, sl] * dlt
+        da = torch.cat(
+            [-imp.sum(2) * w.im_a[:, sl, None],
+             -(tq_a.sum(2) * w.ii_a[:, sl])[..., None]], dim=-1)
+        if cls["kind"] == "big":
+            return da, None
+        tq_b = w.rb_xn[:, sl] * dln + w.rb_xt[:, sl] * dlt
+        return da, torch.cat(
+            [imp.sum(2) * w.im_b[:, sl, None],
+             (tq_b.sum(2) * w.ii_b[:, sl])[..., None]], dim=-1)
 
     def step(state: SimState) -> SimState:
         b = state.bodies
         with record_function("rigid.rows"):
-            grids, (g_pos, g_ang, g_u), nargs, rows, big_shape = \
-                _rows(state)
-        (flat, table, rg_ka, rg_kb, rg_valid, g_verts, g_nverts, g_radius,
-         g_iscirc, g_invm, g_invi, anc_p, anc_a,
-         warm_n, warm_t, warm_pt, warm_nrm) = grids
-        im_a_r, ii_a_r, im_b_r, ii_b_r = rows
+            grids, tick_grids = _rows(state)
+            W = [_part_inputs(p, state, grids, tick_grids) for p in parts]
 
-        # ---- narrowphase: SAT + incident-edge clip over [NC*R] rows ----
+        # ---- narrowphase: SAT + incident-edge clip over each part's rows
         with record_function("rigid.narrowphase"):
-            if plain_rows:
-                hit, nrm, pen, pts, pens, cval, pos_a, pos_b = _plain_rows(
-                    b, nargs, g_radius, g_iscirc)
-            else:
-                hit, nrm, pen, pts, pens, cval, pos_a, pos_b = narrow(
-                    *nargs, nbx=nbx, layout=layout)
-        nrm = nrm.reshape(NC, R, 2)
-        valid = (rg_valid & hit.reshape(NC, R))[..., None] \
-            & cval.reshape(NC, R, C)
-        # sanitize invalid rows: clipping on garbage slot-0 shapes can emit
-        # inf/NaN points, and NaN*0 would leak through the masked scatters
-        pts = torch.where(valid[..., None], pts.reshape(NC, R, C, 2), 0.0)
-        pens = torch.where(valid, pens.reshape(NC, R, C), 0.0)
+            for w in W:
+                w.narrow = _plain_rows(w) if plain_rows else \
+                    narrow(*w.nargs, nbx=nbx, layout=layout)
+        for p, w in zip(parts, W):
+            _contacts(p, w)
+        dga, dgb = degrees(W, [w.valid.sum(-1).to(f32) for w in W])
+        for i, w in enumerate(W):
+            row = (w.im_a[..., None], w.im_b[..., None], w.ii_a[..., None],
+                   w.ii_b[..., None])
+            degs = (dga[i][..., None], dgb[i][..., None])
+            va_c = w.valid.to(f32)
+            w.eff_n = eff(*row, w.ra_xn, w.rb_xn, *degs) * va_c
+            w.eff_t = eff(*row, w.ra_xt, w.rb_xt, *degs) * va_c
 
-        # ---- warm start (slot-persistent; point-matched within pair) ----
-        if rc.warm_start:
-            ln0, lt0 = match_warm_impulses(
-                pts.reshape(NC * R, C, 2), nrm.reshape(NC * R, 2),
-                warm_pt.reshape(NC * R, C, 2), warm_nrm.reshape(NC * R, 2),
-                warm_n.reshape(NC * R, C), warm_t.reshape(NC * R, C),
-                torch.ones((NC * R,), dtype=torch.bool, device=dev),
-                tol=rc.warm_position_tolerance,
-                slot_fallback=rc.warm_slot_fallback)
-            ln0 = torch.where(valid, ln0.reshape(NC, R, C), 0.0)
-            lt0 = torch.where(valid, lt0.reshape(NC, R, C), 0.0)
-
-        # ---- per-row solver constants ----
-        nh = geo._unit(nrm)
-        th = torch.stack([-nh[..., 1], nh[..., 0]], dim=-1)
-        ra = pts - pos_a.reshape(NC, R, 1, 2)                 # [NC,R,C,2]
-        rb = pts - pos_b.reshape(NC, R, 1, 2)
-        ra_xn = _cross2(ra, nh[:, :, None, :])
-        rb_xn = _cross2(rb, nh[:, :, None, :])
-        ra_xt = _cross2(ra, th[:, :, None, :])
-        rb_xt = _cross2(rb, th[:, :, None, :])
-        # own-contact normal->tangent coupling (solver.py ctn)
-        ctn = (ra_xn * ra_xt * ii_a_r[..., None]
-               + rb_xn * rb_xt * ii_b_r[..., None])
-
-        def degrees(count):
-            """Mass-splitting degrees of each row's two bodies: the class's
-            contact count per body, at least 1; the big side is frozen."""
-            dga = torch.zeros((NC, R), dtype=f32, device=dev)
-            dgb = torch.zeros((NC, R), dtype=f32, device=dev)
-            for cls in classes:
-                sl = cls["sl"]
-                ka, kb = rg_ka[:, sl], rg_kb[:, sl]
-                d_own = _scat(count[:, sl], ka, KB)           # [NC, KB]
-                if cls["kind"] == "big":
-                    d_cls = d_own
-                    dgb[:, sl] = 1.0
-                else:
-                    dx, dy = cls["dx"], cls["dy"]
-                    d_cls = d_own + roll_cells(_scat(count[:, sl], kb, KB),
-                                               -dx, -dy)
-                    dgb[:, sl] = torch.clamp(
-                        _sel(roll_cells(d_cls, dx, dy), kb), min=1.0)
-                dga[:, sl] = torch.clamp(_sel(d_cls, ka), min=1.0)
-            return dga, dgb
-
-        deg_a_r, deg_b_r = degrees(valid.sum(-1).to(f32))
-
-        def eff(im_a, im_b, ii_a, ii_b, rx_a, rx_b, dga, dgb):
-            s = (im_a * dga + im_b * dgb
-                 + rx_a * rx_a * ii_a * dga + rx_b * rx_b * ii_b * dgb)
-            return torch.where(s < 1e-12, 0.0,
-                               true_div(1.0, torch.clamp(s, min=1e-12)))
-
-        va_c = valid.to(f32)
-        row = (im_a_r[..., None], im_b_r[..., None], ii_a_r[..., None],
-               ii_b_r[..., None])
-        degs = (deg_a_r[..., None], deg_b_r[..., None])
-        eff_n = eff(*row, ra_xn, rb_xn, *degs) * va_c
-        eff_t = eff(*row, ra_xt, rb_xt, *degs) * va_c
-
-        # ---- velocity solve (staged projected Jacobi over class passes) ----
-        def partner(X, cls, kb, big_x):
-            if cls["kind"] == "big":
-                return big_x[kb.long()]
-            return _sel(roll_cells(X, cls["dx"], cls["dy"]), kb)
-
-        def class_rel_vel(U, cls, ka, kb, sl):
-            ua = _sel(U, ka)                                  # [NC,Rc,3]
-            ub = partner(U, cls, kb, big_shape["u"] if NBIG else None)
-            va = ua[..., None, :2] + torch.stack(
-                [-ua[..., None, 2] * ra[:, sl, :, 1],
-                 ua[..., None, 2] * ra[:, sl, :, 0]], -1)
-            vb = ub[..., None, :2] + torch.stack(
-                [-ub[..., None, 2] * rb[:, sl, :, 1],
-                 ub[..., None, 2] * rb[:, sl, :, 0]], -1)
-            rv = vb - va                                      # [NC,Rc,C,2]
-            return geo._dot2(rv, nh[:, sl, None, :]), \
-                geo._dot2(rv, th[:, sl, None, :])
-
-        def class_apply(U, cls, ka, kb, sl, dln, dlt):
-            imp = (nh[:, sl, None, :] * dln[..., None]
-                   + th[:, sl, None, :] * dlt[..., None])     # [NC,Rc,C,2]
-            tq_a = ra_xn[:, sl] * dln + ra_xt[:, sl] * dlt
-            tq_b = rb_xn[:, sl] * dln + rb_xt[:, sl] * dlt
-            da = torch.cat(
-                [-imp.sum(2) * im_a_r[:, sl, None],
-                 -(tq_a.sum(2) * ii_a_r[:, sl])[..., None]], dim=-1)
-            U = U + _scat(da, ka, KB)
-            if cls["kind"] != "big":
-                db = torch.cat(
-                    [imp.sum(2) * im_b_r[:, sl, None],
-                     (tq_b.sum(2) * ii_b_r[:, sl])[..., None]], dim=-1)
-                U = U + roll_cells(_scat(db, kb, KB), -cls["dx"], -cls["dy"])
-            return U
-
-        U = g_u.reshape(NC, KB, 3)
-        ln = torch.zeros((NC, R, C), dtype=f32, device=dev)
-        lt = torch.zeros((NC, R, C), dtype=f32, device=dev)
+        # ---- velocity solve (staged projected Jacobi over class passes;
+        # a (dy = 1) pass first refreshes the bands' halo rows) ----
+        U = [w.u for w in W]
+        for p, w in zip(parts, W):
+            w.ln = torch.zeros((p.own, R, C), dtype=f32, device=p.dev)
+            w.lt = torch.zeros((p.own, R, C), dtype=f32, device=p.dev)
         if rc.warm_start:
             # pre-apply cached impulses on approaching contacts
             # (solver.py:229-238 semantics), class-sequential
             for cls in classes:
                 sl = cls["sl"]
-                ka, kb = rg_ka[:, sl], rg_kb[:, sl]
-                vn0, _ = class_rel_vel(U, cls, ka, kb, sl)
-                ok = valid[:, sl] & (vn0 <= 0.0)
-                ln_s = torch.where(ok, ln0[:, sl], 0.0)
-                lt_s = torch.where(ok, lt0[:, sl], 0.0)
-                U = class_apply(U, cls, ka, kb, sl, ln_s, lt_s)
-                ln[:, sl] = ln_s
-                lt[:, sl] = lt_s
+                if banded and cls["dy"]:
+                    refresh(U)
+                dl = []
+                for p, w, u in zip(parts, W, U):
+                    vn0, _ = class_rel_vel(p, w, u, cls)
+                    ok = w.valid[:, sl] & (vn0 <= 0.0)
+                    dl.append((torch.where(ok, w.ln0[:, sl], 0.0),
+                               torch.where(ok, w.lt0[:, sl], 0.0)))
+                U = class_apply(W, U, cls, [vel_incr(w, cls, *d)
+                                            for w, d in zip(W, dl)])
+                for w, (ln_s, lt_s) in zip(W, dl):
+                    w.ln[:, sl] = ln_s
+                    w.lt[:, sl] = lt_s
 
         for _ in range(rc.solver.iterations):
             for cls in classes:
                 sl = cls["sl"]
-                ka, kb = rg_ka[:, sl], rg_kb[:, sl]
-                vn, vt = class_rel_vel(U, cls, ka, kb, sl)
-                lns, lts, vs = ln[:, sl], lt[:, sl], valid[:, sl]
-                dl = -eff_n[:, sl] * vn * relax
-                new_ln = torch.clamp(lns + dl, min=0.0)
-                dln = torch.where(vs, new_ln - lns, 0.0)
-                lim = mu * new_ln
-                vt = vt + dln * ctn[:, sl]
-                new_lt = torch.clamp(lts - eff_t[:, sl] * vt * relax,
-                                     -lim, lim)
-                dlt = torch.where(vs, new_lt - lts, 0.0)
-                U = class_apply(U, cls, ka, kb, sl, dln, dlt)
-                ln[:, sl] = torch.where(vs, new_ln, lns)
-                lt[:, sl] = torch.where(vs, new_lt, lts)
+                if banded and cls["dy"]:
+                    refresh(U)
+                dl = []
+                for p, w, u in zip(parts, W, U):
+                    vn, vt = class_rel_vel(p, w, u, cls)
+                    lns, lts, vs = w.ln[:, sl], w.lt[:, sl], w.valid[:, sl]
+                    d = -w.eff_n[:, sl] * vn * relax
+                    new_ln = torch.clamp(lns + d, min=0.0)
+                    dln = torch.where(vs, new_ln - lns, 0.0)
+                    lim = mu * new_ln
+                    vt = vt + dln * w.ctn[:, sl]
+                    new_lt = torch.clamp(lts - w.eff_t[:, sl] * vt * relax,
+                                         -lim, lim)
+                    dlt = torch.where(vs, new_lt - lts, 0.0)
+                    dl.append((dln, dlt, new_ln, new_lt))
+                U = class_apply(W, U, cls, [vel_incr(w, cls, *d[:2])
+                                            for w, d in zip(W, dl)])
+                for w, (_, _, new_ln, new_lt) in zip(W, dl):
+                    vs = w.valid[:, sl]
+                    w.ln[:, sl] = torch.where(vs, new_ln, w.ln[:, sl])
+                    w.lt[:, sl] = torch.where(vs, new_lt, w.lt[:, sl])
 
         # ---- position solve (Baumgarte, lever arms track; solver.py) ----
-        Q = torch.cat([g_pos.reshape(NC, KB, 2), g_ang.reshape(NC, KB, 1)],
-                      dim=-1)
-        act = valid & ((pens - rc.position.slop) > 0.0)
-        corr = rc.position.baumgarte * (pens - rc.position.slop)
-        dga_p, dgb_p = degrees(act.sum(-1).to(f32))
-        big_q = torch.cat([big_shape["pos"], big_shape["angle"][:, None]],
-                          dim=-1) if NBIG else None
+        Q = [torch.cat([w.pos, w.ang[..., None]], dim=-1) for w in W]
+        for w in W:
+            w.act = w.valid & ((w.pens - rc.position.slop) > 0.0)
+            w.corr = rc.position.baumgarte * (w.pens - rc.position.slop)
+        dga_p, dgb_p = degrees(W, [w.act.sum(-1).to(f32) for w in W])
+        big_q = [torch.cat([w.big["pos"], w.big["angle"][:, None]], dim=-1)
+                 if NBIG else None for w in W]
 
         for _ in range(rc.position.iterations):
             for cls in classes:
                 sl = cls["sl"]
-                ka, kb = rg_ka[:, sl], rg_kb[:, sl]
-                qa = _sel(Q, ka)
-                qb = partner(Q, cls, kb, big_q)
-                ra_ = pts[:, sl] - qa[..., None, :2]
-                rb_ = pts[:, sl] - qb[..., None, :2]
-                rxa = _cross2(ra_, nh[:, sl, None, :])
-                rxb = _cross2(rb_, nh[:, sl, None, :])
-                den = (im_a_r[:, sl, None] * dga_p[:, sl, None]
-                       + im_b_r[:, sl, None] * dgb_p[:, sl, None]
-                       + rxa * rxa * ii_a_r[:, sl, None] * dga_p[:, sl, None]
-                       + rxb * rxb * ii_b_r[:, sl, None]
-                       * dgb_p[:, sl, None])
-                scl = torch.where(act[:, sl] & (den > 1e-12),
-                                  corr[:, sl] / torch.clamp(den, min=1e-12),
-                                  0.0)
-                d = nh[:, sl, None, :] * scl[..., None]
-                dqa = torch.cat(
-                    [-d.sum(2) * im_a_r[:, sl, None],
-                     -((rxa * scl).sum(2) * ii_a_r[:, sl])[..., None]],
-                    dim=-1)
-                Q = Q + _scat(dqa, ka, KB)
-                if cls["kind"] != "big":
-                    dqb = torch.cat(
-                        [d.sum(2) * im_b_r[:, sl, None],
-                         ((rxb * scl).sum(2) * ii_b_r[:, sl])[..., None]],
+                if banded and cls["dy"]:
+                    refresh(Q)
+                inc = []
+                for i, (p, w, q) in enumerate(zip(parts, W, Q)):
+                    ka, kb = w.ka[:, sl], w.kb[:, sl]
+                    qa = _sel(p.own_cells(q), ka)
+                    qb = partner(p, q, cls, kb, big_q[i])
+                    ra_ = w.pts[:, sl] - qa[..., None, :2]
+                    rb_ = w.pts[:, sl] - qb[..., None, :2]
+                    rxa = _cross2(ra_, w.nh[:, sl, None, :])
+                    rxb = _cross2(rb_, w.nh[:, sl, None, :])
+                    ga, gb = dga_p[i][:, sl, None], dgb_p[i][:, sl, None]
+                    den = (w.im_a[:, sl, None] * ga
+                           + w.im_b[:, sl, None] * gb
+                           + rxa * rxa * w.ii_a[:, sl, None] * ga
+                           + rxb * rxb * w.ii_b[:, sl, None] * gb)
+                    scl = torch.where(w.act[:, sl] & (den > 1e-12),
+                                      w.corr[:, sl]
+                                      / torch.clamp(den, min=1e-12), 0.0)
+                    d = w.nh[:, sl, None, :] * scl[..., None]
+                    dqa = torch.cat(
+                        [-d.sum(2) * w.im_a[:, sl, None],
+                         -((rxa * scl).sum(2) * w.ii_a[:, sl])[..., None]],
                         dim=-1)
-                    Q = Q + roll_cells(_scat(dqb, kb, KB), -cls["dx"],
-                                       -cls["dy"])
+                    dqb = None if cls["kind"] == "big" else torch.cat(
+                        [d.sum(2) * w.im_b[:, sl, None],
+                         ((rxb * scl).sum(2) * w.ii_b[:, sl])[..., None]],
+                        dim=-1)
+                    inc.append((dqa, dqb))
+                Q = class_apply(W, Q, cls, inc)
 
-        # ---- gather back to body arrays ----
+        # ---- gather back to body arrays, in cell order on the lead ----
+        flat = grids[0]
+        U, Q = gather(U), gather(Q)
         src = torch.where(flat >= 0, flat, 0).long()
         on_grid = flat >= 0
         Uf = U.reshape(NC * KB, 3)[src]
@@ -691,21 +882,26 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             angle=put(b.angle, torch.where(on_grid, Qf[:, 2], b.angle[:S])),
             omega=put(b.omega, torch.where(on_grid, Uf[:, 2], b.omega[:S])),
         )
+        anc_p, anc_a = grids[11], grids[12]
         return state.replace(
             bodies=nb_,
-            rg_flat=flat, rg_table=table,
-            rg_ka=rg_ka, rg_kb=rg_kb, rg_valid=rg_valid,
-            rg_verts=g_verts, rg_nverts=g_nverts, rg_radius=g_radius,
-            rg_iscirc=g_iscirc, rg_invm=g_invm, rg_invi=g_invi,
+            rg_flat=flat, rg_table=grids[1],
+            rg_ka=grids[2], rg_kb=grids[3], rg_valid=grids[4],
+            rg_verts=grids[5], rg_nverts=grids[6], rg_radius=grids[7],
+            rg_iscirc=grids[8], rg_invm=grids[9], rg_invi=grids[10],
             bp_anchor_pos=put(state.bp_anchor_pos, anc_p),
             bp_anchor_ang=put(state.bp_anchor_ang, anc_a),
-            rg_warm_n=torch.where(valid, ln, 0.0),
-            rg_warm_t=torch.where(valid, lt, 0.0),
-            rg_warm_pt=torch.where(valid[..., None], pts, INF),
-            rg_warm_nrm=nh,
+            rg_warm_n=gather([torch.where(w.valid, w.ln, 0.0) for w in W]),
+            rg_warm_t=gather([torch.where(w.valid, w.lt, 0.0) for w in W]),
+            rg_warm_pt=gather([torch.where(w.valid[..., None], w.pts, INF)
+                               for w in W]),
+            rg_warm_nrm=gather([w.nh for w in W]),
         )
 
     step.guard_reads = 0
     step.rebuilds = 0
     step.narrowphase_args = narrowphase_args
+    step.mesh = mesh if banded else None
+    step.bands = len(parts)
+    step.halo_stats = halo_stats
     return step

@@ -333,6 +333,67 @@ def test_band_coupling_forces_match_single_device():
     assert dp < POS and dv < VEL, (dp, dv)
 
 
+def stacked_polygons_jax(seed=3, nx=12, ny=10, per=3):
+    """A universe of 1.5 m with a floor wall, 120 small polygons in 10
+    rows of 12 (every 5 cm, radius 1.5 cm) and ``per`` liquid particles
+    around each, at rest: every cell row of the polygons holds 12 coupling
+    candidates."""
+    from lpe_tpu.core.config import (FluidConfig, ScenarioSystemConfig,
+                                     SharedSystemConfig)
+    from lpe_tpu.core.constants import Phase, ShapeKind
+    from lpe_tpu.math.polygon import (build_regular_polygon,
+                                      calculate_polygon_inertia)
+    from lpe_tpu.scene import SceneBuilder
+    universe = 1.5
+    cfg = ScenarioSystemConfig(
+        shared=SharedSystemConfig(universe_size_m=universe),
+        fluid=FluidConfig())
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder("stacked_polygons")
+    b.add_wall(universe / 2, 0.05, universe / 2, 0.04)
+    centres = [(0.45 + 0.05 * i, 0.4 + 0.05 * j)
+               for j in range(ny) for i in range(nx)]
+    for k, (x, y) in enumerate(centres):
+        verts = build_regular_polygon(4 + k % 3, 0.015)
+        b.add(pos=(x, y), mass=0.5, phase=int(Phase.SOLID),
+              shape_kind=int(ShapeKind.POLYGON), radius=0.015, verts=verts,
+              inertia=calculate_polygon_inertia(verts, 0.5))
+    for x, y in centres:
+        for _ in range(per):
+            b.add(pos=(x + rng.uniform(-0.02, 0.02),
+                       y + rng.uniform(-0.02, 0.02)),
+                  mass=0.005, phase=int(Phase.LIQUID), radius=0.02)
+    return b.finalize(cfg)
+
+
+@pytest.mark.parametrize("bands", [2, 3, 4])
+def test_band_tick_with_saturated_coupling_windows(bands):
+    """With the coupling's sorted window capped at 64 candidates
+    (``coupling_window_rows``) below the 12 a cell row of stacked
+    polygons, a row's window keeps only the candidates of the lowest
+    buckets from its chunk's origin. One fluid step in 2, 3 and 4 bands
+    (none of whose first rows starts a chunk of COUPLE_CHUNK_ROWS) equals
+    the single device's in every liquid field to the bit: a band row's
+    window starts at its whole-grid chunk's origin. From its band's own
+    origin, as lpe_tpu's step_halo takes it (sph.py:856), the saturated
+    windows keep other candidates and the liquid's velocities differ by
+    tens of m/s."""
+    from lpe_tpu_torch.core import constants as C
+    from lpe_tpu_torch.systems.fluid import make_fluid
+    spec, cfg, state = port_split(stacked_polygons_jax(), num_sub_steps=4,
+                                  coupling_window_rows=64)
+    one = make_fluid(spec, cfg, device="cpu")
+    banded = make_fluid(spec, cfg, device="cpu", mesh=cpu_mesh(bands))
+    assert banded.band_rows % C.COUPLE_CHUNK_ROWS != 0
+    want, got = one(state), banded(state)
+    liq = spec.liquid_slice
+    assert float((want.bodies.vel[liq] - state.bodies.vel[liq]).abs()
+                 .max()) > 1.0                        # the polygons couple
+    for f in ("pos", "vel", "density", "pressure"):
+        assert torch.equal(getattr(got.bodies, f)[liq],
+                           getattr(want.bodies, f)[liq]), f
+
+
 def test_dryrun_tracers_cross_bands():
     from lpe_tpu_torch.parallel.dryrun import dryrun_multichip
     out = dryrun_multichip(4, device="cpu")

@@ -267,8 +267,14 @@ def test_cpu_grid_narrowphase_takes_its_plain_version():
     assert got[0].any() and (~got[0]).any()
 
 
+def _bits(t):
+    t = t.cpu()
+    return t.view(torch.int32) if t.is_floating_point() else t
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["rows", "grid", "grid_in_passes"])
+@pytest.mark.parametrize("form", ["rows", "grid", "grid_in_passes",
+                                  "grid_bands"])
 def test_cuda_narrowphase_matches_plain(form, monkeypatch):
     """The CUDA kernels against their plain versions on the same rows, on
     the card: hit and contact masks equal, the rest within the tolerances
@@ -276,9 +282,31 @@ def test_cuda_narrowphase_matches_plain(form, monkeypatch):
     row form on random rows; the grid form on a random grid, staging
     every class at once and, with the shared memory a block may have cut
     down, in several passes; its side positions equal the plain
-    version's."""
+    version's. The grid form on y-row bands of a 4 x 4 grid (2 and 4
+    bands, ``grid_band``: a band's rows and the row below them): each
+    band's outputs equal its plain version's and the whole grid's kernel
+    outputs for those rows, to the bit, every row."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    if form == "grid_bands":
+        args, kw = _random_grid("cuda", nbx=4)
+        nbx, R = kw["nbx"], args[8].shape[1]
+        whole = RK.narrowphase_grid(*args, **kw)
+        for D in (2, 4):
+            rows = nbx // D
+            for i in range(D):
+                band = RK.grid_band(args, nbx=nbx, r0=i * rows, rows=rows)
+                RK.reset_counters()
+                got = RK.narrowphase_grid(*band, **kw)
+                torch.cuda.synchronize()
+                assert RK.narrowphase_grid.launches == 1
+                ref = RK.narrowphase_grid_plain(*band, **kw)
+                cut = slice(i * rows * nbx * R, (i + 1) * rows * nbx * R)
+                for g, r, w in zip(got, ref, whole):
+                    assert g.shape[0] == rows * nbx * R
+                    assert torch.equal(_bits(g), _bits(r))
+                    assert torch.equal(_bits(g), _bits(w[cut]))
+        return
     if form != "rows":
         if form == "grid_in_passes":    # own cell + one partner a pass
             monkeypatch.setattr(RK, "SMEM_MAX", 2 * KB * (16 * V + 24))
