@@ -203,13 +203,35 @@ Phases (any failure raises and exits non-zero, printing no result):
      tick against the single-device split tick (phase 23's tolerances for
      the liquid, b.'s for the rigids); e. dryrun_multichip(4) on the card
      (its coupled scene, a 512-body galaxy and lpe_tpu's SHARD_GRID
-     scene), its line printed;
+     scene; its coupled scene runs its rigid list pipeline in 4 shards),
+     its line printed;
+  25. the rigid list pipeline over the mesh (its narrowphase by runs of
+     pairs, its solvers' row math by runs of rows; run_list_shards), all
+     shards on this card: a. the coupled dam (phase 10's settled split
+     state) with its fluid in 4 row bands and its list pipeline in 4
+     shards through build_sharded_run(ticks=3): a block against the
+     single device's (the liquid at phase 23's tolerances, the rigids at
+     pos 1e-5 m, vel and omega 1e-4; whether each is to the bit, and the
+     warm caches, printed; the rigids and warm caches must equal, to the
+     bit, the same block with the fluid in bands and the list pipeline
+     whole: what the list split itself changes), a counted block (migrate, density, force and
+     coupling 10 D times a tick, nothing else, no plain version) whose
+     host syncs are counted under set_sync_debug_mode("warn") (none
+     beyond the single device's block), the split's copies and bytes a
+     tick, two blocks from one state equal to the bit, kernel launches a
+     tick (profiler) beside the single device's with the
+     rigid.narrowphase, .velocity and .position ranges apart, ticks/s
+     beside the single device timed in turn over 3 rounds (median
+     printed); b. RANDOM_POLYGONS (seed 1) in 2 and 4 shards, 10 ticks
+     against the single device (the same rigid tolerances; bits printed)
+     and launches a tick; c. is phase 24e's dry run, whose line carries
+     the coupled scene's list split;
   16. then print the bitwise twin checks as a JSON line, the K = 64
      kernels, the launches of each new path, the couplings on moving
      rigids, the gravity parts' times and bounds, the app line, the
-     mixed_h line, the bands line, the shards line, the kernels' JSON
-     line (narrowphase_grid's with its band launches), then the result
-     line.
+     mixed_h line, the bands line, the shards line (phase 25's under
+     "list"), the kernels' JSON line (narrowphase_grid's with its band
+     launches), then the result line.
 Every kernel's line carries its bound: the larger of the bytes it must
 move on these inputs (slot_bytes, coupling9_bytes, coupling_bytes: what
 an empty slot or a cell that does not couple holds is counted only where
@@ -3303,6 +3325,194 @@ def run_entity_shards(dev, card, rigid, galaxies, north):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the rigid list pipeline over the mesh (its narrowphase by runs
+# of pairs, its solvers' rows by runs of rows), every shard on this card
+LIST_SHARDS = 4           # the coupled dam's bands and list shards
+LIST_BLOCK = 3            # ticks a coupled dam block
+LIST_ROUNDS = 3           # rounds of its ticks/s, timed in turn
+LIST_POLY_TICKS = 10      # RANDOM_POLYGONS' ticks against the single device
+LIST_CACHES = ("warm_normal", "warm_tangent", "warm_ia", "warm_ib",
+               "warm_pt", "warm_n")
+
+
+def list_launches(tick, state):
+    """One tick of ``tick`` from ``state`` under torch.profiler: (kernel
+    launches on the card, launches in each rigid list range)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from lpe_tpu_torch.profile_tick import (LIST_RANGES, _kernel_times,
+                                            _range_launches)
+    tick(state)                                 # nothing first-call left
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tick(state)
+        torch.cuda.synchronize()
+    return (_kernel_times(prof, set(LIST_RANGES))[1],
+            _range_launches(prof, LIST_RANGES))
+
+
+def caches_bitwise(a, b):
+    return all(tensor_bits_equal(getattr(a, f), getattr(b, f))
+               for f in LIST_CACHES)
+
+
+def list_coupled(card, coupled):
+    """Phase 25a: the coupled dam (phase 10's settled split state) with its
+    fluid in LIST_SHARDS row bands and its list pipeline in LIST_SHARDS
+    shards through build_sharded_run(ticks=LIST_BLOCK): a block against the
+    single device's (the liquid at phase 23's tolerances, the rigids at
+    RIGID_BAND_TOL; bits printed), and its rigids and warm caches
+    against the block with the fluid in bands and the list pipeline whole,
+    to the bit (what the list split itself changes: none); one counted block (migrate, density,
+    force and coupling 10 D times a tick, nothing else, no plain version)
+    whose host syncs are counted (none beyond the single device's block);
+    the split's copies and bytes a tick; two blocks from one state equal
+    to the bit; kernel launches a tick (profiler) beside the single
+    device's, the rigid.narrowphase, .velocity and .position ranges
+    apart; ticks/s beside the single device timed in turn."""
+    import torch
+    from lpe_tpu_torch.parallel import make_mesh
+    from lpe_tpu_torch.parallel.sharded import (build_sharded_run,
+                                                 build_sharded_tick)
+    from lpe_tpu_torch.scene import Scene
+    from lpe_tpu_torch.systems import build_run_fn, build_tick_fn
+    spec, cfg, settled = coupled
+    dev = settled.bodies.pos.device
+    D = LIST_SHARDS
+    ticks = LIST_BLOCK
+    label = (f"coupled dam {COUPLED} split, fluid in {D} bands, list "
+             f"pipeline in {D} shards")
+    scene = Scene(state=settled, spec=spec, cfg=cfg)
+    mesh = make_mesh(devices=[dev] * D)
+    single = build_run_fn(spec, cfg, ticks=ticks, device=dev)
+    run = build_sharded_run(scene, mesh, ticks=ticks)
+    step = run.systems["rigid"]
+    if getattr(run.systems["fluid"], "mesh", None) is not mesh or \
+            step.shards != D:
+        fail(f"{label}: fluid bands {run.systems['fluid'].mesh}, list "
+             f"shards {step.shards}")
+    want = single(settled)
+    got = run(settled)
+    g = band_gaps(got, want, spec)
+    hold_bands(label, g)
+    rg = state_gaps(got, want, slice(0, spec.n_solid))
+    hold_rigid_bands(label, rg)
+    rg["caches_bitwise"] = caches_bitwise(got, want)
+    # the same block with the fluid in bands and the list pipeline whole:
+    # what the list split itself changes
+    alone = build_run_fn(spec, cfg, ticks=ticks, device=dev,
+                         fluid_mesh=mesh)(settled)
+    rg["bitwise_to_fluid_bands_alone"] = state_gaps(
+        got, alone, slice(0, spec.n_solid))["bitwise"] and \
+        caches_bitwise(got, alone)
+    if not rg["bitwise_to_fluid_bands_alone"]:
+        fail(f"{label}: the rigids or warm caches differ from the block with "
+             f"the fluid in bands and the list pipeline whole: the list "
+             f"split changed bits")
+    from lpe_tpu_torch.ops import rigid_kernels as RK
+    from lpe_tpu_torch.ops import sph_kernels as SK
+    _, single_syncs = sync_count(lambda: single(settled))
+    step.shard_stats.update(copies=0, bytes=0)
+    SK.reset_counters()
+    RK.reset_counters()
+    got, syncs = sync_count(lambda: run(settled))
+    ops = (*SK.OPS, *RK.OPS)
+    launches = {op.name: op.launches for op in ops if op.launches}
+    plain = {op.name: op.plain_calls for op in ops if op.plain_calls}
+    if launches != want_band_launches(D, ticks) or plain:
+        fail(f"{label}: launches {launches}, expected "
+             f"{want_band_launches(D, ticks)}; plain calls {plain}")
+    extra = syncs - single_syncs
+    if extra:
+        fail(f"{label}: host syncs {dict(syncs)} beyond the single "
+             f"device's {dict(single_syncs)}")
+    stats = {k: v / ticks for k, v in step.shard_stats.items()}
+    a, b = run(settled), run(settled)
+    differ = [n for part in ("", "bodies")
+              for n, u, w in state_fields(a, b, part)
+              if not tensor_bits_equal(u, w)]
+    if differ:
+        fail(f"{label}: two blocks from one state differ in {differ}")
+    n1, r1 = list_launches(build_tick_fn(spec, cfg, device=dev), settled)
+    nD, rD = list_launches(build_sharded_tick(scene, mesh), settled)
+    print(f"{label}: on {card}; one block of {ticks} against the single "
+          f"device's: liquid max |dpos| {g['dpos']:.3e} m, |dvel| "
+          f"{g['dvel']:.3e} m/s, bitwise {g['liquid_bitwise']}; rigids "
+          f"|dpos| {rg['pos']:.3e} m, |dvel| {rg['vel']:.3e} m/s, |domega| "
+          f"{rg['omega']:.3e} rad/s, bitwise {rg['bitwise']}, warm caches "
+          f"bitwise {rg['caches_bitwise']}; against the fluid in bands with "
+          f"the list pipeline whole: rigids and caches bitwise "
+          f"{rg['bitwise_to_fluid_bands_alone']}; kernel launches "
+          f"{launches}, no plain call; host syncs {dict(syncs)} (the "
+          f"single device's {dict(single_syncs)}); the list split's "
+          f"{stats['copies']:.0f} copies and {stats['bytes']:.0f} bytes a "
+          f"tick; two blocks from "
+          f"one state bitwise equal; launches a tick (profiler) {nD} "
+          f"beside {n1}: " + ", ".join(
+              f"{k.removeprefix('rigid.')} {rD[k]} beside {r1[k]}"
+              for k in ("rigid.narrowphase", "rigid.velocity",
+                        "rigid.position")), flush=True)
+    tps = band_tps(card, {"single device": (single, settled),
+                          f"{D} bands and shards": (run, settled)},
+                   rounds=LIST_ROUNDS, blocks=1,
+                   what=f"coupled dam {COUPLED} split", block=ticks)
+    return dict(shards=step.shards, liquid=g, rigids=rg, launches=launches,
+                host_syncs=dict(syncs), single_host_syncs=dict(single_syncs),
+                copies_per_tick=stats["copies"], bytes_per_tick=stats["bytes"],
+                launches_per_tick=dict(single=n1, split=nD),
+                range_launches_per_tick=dict(single=r1, split=rD),
+                ticks_per_s=tps)
+
+
+def list_polygons(card, dev):
+    """Phase 25b: RANDOM_POLYGONS (seed 1) in 2 and 4 shards, LIST_POLY_TICKS
+    ticks against the single device (RIGID_BAND_TOL; bits printed), and
+    kernel launches a tick (profiler) beside the single device's."""
+    from lpe_tpu_torch.parallel import make_mesh
+    from lpe_tpu_torch.parallel.sharded import (build_sharded_run,
+                                                 build_sharded_tick)
+    from lpe_tpu_torch.scenarios import create_scenario
+    from lpe_tpu_torch.systems import build_run_fn, build_tick_fn
+    sc = create_scenario("RANDOM_POLYGONS", seed=1, device=dev)
+    ticks = LIST_POLY_TICKS
+    want = build_run_fn(sc.spec, sc.cfg, ticks=ticks, device=dev)(sc.state)
+    n1, _ = list_launches(build_tick_fn(sc.spec, sc.cfg, device=dev),
+                          sc.state)
+    out = dict(single_launches_per_tick=n1)
+    for D in SHARD_COUNTS:
+        label = f"RANDOM_POLYGONS in {D} shards"
+        mesh = make_mesh(devices=[dev] * D)
+        run = build_sharded_run(sc, mesh, ticks=ticks)
+        if run.systems["rigid"].shards != D:
+            fail(f"{label}: {run.systems['rigid'].shards} shards")
+        got = run(sc.state)
+        g = state_gaps(got, want, slice(0, sc.spec.n_solid))
+        hold_rigid_bands(label, g)
+        g["caches_bitwise"] = caches_bitwise(got, want)
+        nD, _ = list_launches(build_sharded_tick(sc, mesh), sc.state)
+        print(f"{label}: {ticks} ticks against the single device on "
+              f"{card}: max |dpos| {g['pos']:.3e} m, |dvel| {g['vel']:.3e} "
+              f"m/s, |domega| {g['omega']:.3e} rad/s, bitwise "
+              f"{g['bitwise']}, warm caches bitwise {g['caches_bitwise']}; "
+              f"launches a tick (profiler) {nD} beside {n1}", flush=True)
+        out[f"d{D}"] = dict(g, launches_per_tick=nD)
+    return out
+
+
+def run_list_shards(dev, card, coupled):
+    """Phase 25: the rigid list pipeline over the mesh on one card (a., b.;
+    c. is phase 24e's dry run, whose line carries the list split)."""
+    t0 = time.perf_counter()
+    out = dict(card=card, coupled=list_coupled(card, coupled),
+               polygons=list_polygons(card, dev))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"list pipeline over the mesh: phase 25 in {out['seconds']:.2f} "
+          f"s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3423,6 +3633,11 @@ def main(argv=None) -> int:
     band_np = {f"d{D}": shards["rigid"][f"d{D}"]["launches_per_tick"]
                ["narrowphase_grid"] * RIGID_BAND_BLOCK for D in SHARD_COUNTS}
     paths["shards_rigid"] = band_np
+
+    # 25. the rigid list pipeline over the mesh: the coupled dam's fluid in
+    # row bands and its list pipeline in shards, RANDOM_POLYGONS in shards,
+    # all on this card
+    shards["list"] = run_list_shards(dev, card, coupled_split)
 
     # 16. results (after 17-24): no single PyTorch call computes any of
     # these kernels

@@ -8,6 +8,10 @@ halo exchange of ``lpe_tpu/systems/fluid/sph.py`` step_halo (``_exch``,
 their tensors, slice copies where two bands share a device and peer copies
 between cards. There is no ``torch.distributed`` path: ``lpe_tpu`` has no
 multi-process feature, and NCCL refuses two ranks on one card.
+
+``split_runs`` and ``Runs`` cut whole blocks or rows into contiguous runs,
+one a device, for the systems split by entity (gravity's receiver blocks,
+the rigid list pipeline's pairs and contact rows).
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import torch
 
 class BandMesh:
     """An ordered list of devices, one a band; ``devices[0]`` leads (the
-    state and every system but the fluid's bands live there)."""
+    state lives there, and what no system splits runs there)."""
 
     def __init__(self, devices):
         self.devices = [torch.device(d) for d in devices]
@@ -52,12 +56,96 @@ class BandMesh:
 
 def split_runs(starts, devices):
     """Whole blocks to devices in contiguous runs: the block starts
-    ``starts`` cut into len(devices) runs as even as they come, in order,
-    each with its device (an empty run is left out)."""
-    n, D = len(starts), len(devices)
-    runs = [(dev, starts[d * n // D:(d + 1) * n // D])
-            for d, dev in enumerate(devices)]
-    return [(dev, run) for dev, run in runs if run]
+    ``starts`` cut into as many runs as there are blocks or devices,
+    whichever is fewer, as even as they come, in order, each with its
+    device. With fewer blocks than devices the first devices take one
+    block each and the others none, so the first device always holds the
+    first block."""
+    n = len(starts)
+    k = min(n, len(devices))
+    return [(devices[d], starts[d * n // k:(d + 1) * n // k])
+            for d in range(k)]
+
+
+class Runs:
+    """``n`` rows cut into contiguous runs, one a device of ``devices``
+    (``split_runs``: a device beyond the row count takes none), and the
+    transfers that take a tensor's rows to their runs and bring the runs'
+    results back to ``lead`` in row order. Without ``devices`` (or with
+    one) the rows are one whole run on ``lead``: ``cut``, ``copy`` and
+    ``join`` then hand their arguments back, and the caller runs its
+    single-device ops. The first device must be ``lead``.
+
+    ``stats`` (``copies`` and ``bytes``) counts the tensors a split moves
+    and their bytes, every run's but the first, which sits on the lead
+    device: what a mesh of distinct cards moves, also where the runs share
+    a card (there ``.to`` copies nothing). ``over`` cuts other rows over
+    the same devices into the same counts."""
+
+    def __init__(self, n: int, devices, lead, stats=None):
+        self.lead = torch.device(lead)
+        self.devices = None if devices is None or len(devices) < 2 \
+            else [torch.device(d) for d in devices]
+        if self.devices is None:
+            self.runs = [(self.lead, 0, n)]
+        elif self.devices[0] != self.lead:
+            raise ValueError(f"cannot split over {devices}: the first "
+                             f"is not the lead device {self.lead}")
+        else:
+            self.runs = [(dev, run[0], run[-1] + 1)
+                         for dev, run in split_runs(range(n), self.devices)]
+        self.whole = self.devices is None
+        self.stats = dict(copies=0, bytes=0) if stats is None else stats
+
+    def over(self, n: int) -> "Runs":
+        """``n`` other rows over the same devices, counted in ``stats``."""
+        return Runs(n, self.devices, self.lead, self.stats)
+
+    def __len__(self):
+        return len(self.runs)
+
+    def _moved(self, i, t):
+        if i > 0:
+            self.stats["copies"] += 1
+            self.stats["bytes"] += t.numel() * t.element_size()
+
+    def cut(self, t):
+        """Each run's rows of ``t`` (rows on dim 0), on its device."""
+        if self.whole:
+            return [t]
+        out = []
+        for i, (dev, a, b) in enumerate(self.runs):
+            out.append(t[a:b].to(dev, non_blocking=True))
+            self._moved(i, out[-1])
+        return out
+
+    def cut_dict(self, d):
+        """``cut`` of each tensor of the dict ``d``, as one dict a run."""
+        cols = {k: self.cut(v) for k, v in d.items()}
+        return [{k: cols[k][i] for k in d} for i in range(len(self.runs))]
+
+    def copy(self, t):
+        """``t`` whole on each run's device."""
+        if self.whole:
+            return [t]
+        out = []
+        for i, (dev, _, _) in enumerate(self.runs):
+            out.append(t.to(dev, non_blocking=True))
+            self._moved(i, t)
+        return out
+
+    def join(self, parts):
+        """The tensors ``parts`` (each on its run's device, in the order
+        of ``cut``'s runs, or several such lists one after another) on the
+        lead device, concatenated on dim 0; one tensor is handed back."""
+        if len(parts) == 1:
+            return parts[0]
+        if not self.whole:
+            n = len(self.runs)
+            for i, t in enumerate(parts):
+                self._moved(i % n, t)
+            parts = [t.to(self.lead, non_blocking=True) for t in parts]
+        return torch.cat(parts)
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> BandMesh:

@@ -2,9 +2,10 @@
 ``__graft_entry__.py`` ``dryrun_multichip`` (lines 18-171).
 ``dryrun_multichip(4)`` puts 4 bands on the first CUDA card
 (``device="cpu"`` on the CPU; ``devices=`` to list the bands' devices),
-runs 3 ticks of a coupled scene (the fluid in row bands), of a galaxy
-(gravity split by receiver blocks) and of a grid rigid scene (y-row
-bands) against the single-device tick and prints one line.
+runs 3 ticks of a coupled scene (the fluid in row bands, its rigid list
+pipeline by runs of pairs and rows), of a galaxy (gravity split by
+receiver blocks) and of a grid rigid scene (y-row bands) against the
+single-device tick and prints one line.
 """
 from __future__ import annotations
 
@@ -109,9 +110,12 @@ def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> dict:
     ``devices``, else all on ``device``) against the single-device tick on
     the mesh's lead device, and assert:
 
-    - the coupled scene, its fluid in row bands: |dpos| < 5e-4 m and
-      |dvel| < 5e-3 m/s over every active body; more than 0 liquid
-      particles crossed a band; at least 2 bands hold liquid at the end;
+    - the coupled scene, its fluid in row bands and its rigid list
+      pipeline in ``n_devices`` shards: |dpos| < 5e-4 m and |dvel| <
+      5e-3 m/s over every active body; more than 0 liquid particles
+      crossed a band; at least 2 bands hold liquid at the end; the
+      rigids' deviation and whether they are to the bit are printed
+      (their forces from the fluid's bands may reassociate);
     - KEPLERIAN_DISK at 512 bodies, its direct sum split by receiver
       blocks: equal to the single device to the bit (galaxy_rel_dpos 0);
     - ``lpe_tpu``'s SHARD_GRID scene, the grid rigid pipeline in y-row
@@ -150,6 +154,17 @@ def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> dict:
         lambda: tracer_scene(n_devices, device=lead))
     if not uses_bands(scene, mesh):
         raise AssertionError(f"{mesh} does not run the fluid in bands")
+    list_step = tick.systems["rigid"]
+    if list_step.shards != n_devices:
+        raise AssertionError(f"{mesh} runs the rigid list pipeline in "
+                             f"{list_step.shards} shards, not {n_devices}")
+    nr = scene.spec.n_solid
+    list_gaps = {f: float((getattr(state.bodies, f)[:nr]
+                           - getattr(s_ref.bodies, f)[:nr]).abs().max())
+                 for f in ("pos", "vel", "omega")}
+    list_bitwise = all(torch.equal(getattr(state.bodies, f)[:nr],
+                                   getattr(s_ref.bodies, f)[:nr])
+                       for f in ("pos", "vel", "angle", "omega"))
     act = scene.state.bodies.active
     p_sh, v_sh = state.bodies.pos[act], state.bodies.vel[act]
     if not (bool(torch.isfinite(p_sh).all())
@@ -201,6 +216,11 @@ def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> dict:
           f"in {n_devices} row bands on {[str(d) for d in mesh.devices]}; "
           f"max |dpos|={dp:.2e} m, max |dvel|={dv:.2e} m/s vs single-device;"
           f" {crossings} band crossings, per-band occupancy {occ.tolist()};"
+          f" its {nr} solids' list pipeline in {list_step.shards} shards: "
+          f"max |dpos|={list_gaps['pos']:.2e} m, |dvel|="
+          f"{list_gaps['vel']:.2e} m/s, |domega|={list_gaps['omega']:.2e} "
+          f"rad/s, bitwise {list_bitwise}, "
+          f"{list_step.shard_stats['copies']} copies;"
           f" galaxy-512 rel |dpos|={gdp:.2e} (its direct sum's {g_blocks} "
           f"receiver block(s) over the mesh); SHARD_GRID "
           f"{grid.spec.n_solid} solids in "
@@ -209,5 +229,9 @@ def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> dict:
           f"rad/s, bitwise {rigid_bitwise}, {r_step.halo_stats['copies']} "
           f"row exchanges", flush=True)
     return dict(dpos=dp, dvel=dv, crossings=crossings, occupancy=occ.tolist(),
+                list_rigid=dict(list_gaps, bitwise=list_bitwise,
+                                shards=list_step.shards,
+                                copies=list_step.shard_stats["copies"],
+                                bytes=list_step.shard_stats["bytes"]),
                 galaxy_rel_dpos=gdp,
                 grid_rigid=dict(gaps, bitwise=rigid_bitwise))

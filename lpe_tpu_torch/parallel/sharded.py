@@ -20,16 +20,25 @@ than one device the work is split as ``lpe_tpu``'s shardings split it:
   starts and the body grids, and the row below it, which the (dy = 1)
   class passes exchange. Otherwise it runs whole on the lead device, as
   ``lpe_tpu`` replicates an ``rg_*`` leaf its mesh does not divide;
-- everything else (the rigid list pipeline, the elementwise systems) runs
-  on the lead device.
+- **the rigid list pipeline** (``systems/rigid/pipeline.py``), as GSPMD
+  splits its vmapped pairs: the narrowphase (GJK, EPA, the circle closed
+  form, the manifolds) by contiguous runs of candidate pairs and the
+  solvers' row math by contiguous runs of each stage segment's rows
+  (``parallel.Runs``), the results back to the lead in pair and row
+  order, where the broadphase, the guard, the compaction, the warm-start
+  hash and the solvers' ordered scatter-adds stay (their leaves are
+  ``[max_pairs]``-shaped, which ``lpe_tpu`` replicates);
+- the elementwise systems run on the lead device.
 
-Every split keeps the single device's shapes (the fluid's and the rigid
-bands' per cell or row, gravity's per block), so the bits are one device's
-(the fluid's force sums on rigids and the rigid bands' scatters may
-reassociate: see their tests). State placement differs from ``lpe_tpu``:
-the state stays whole on the lead device (``mesh.devices[0]``), and each
-split system copies its inputs to the devices and its results back in a
-fixed order; ``state_shardings`` names the lead for every leaf.
+Every split keeps the single device's shapes or its per-row ops (the
+fluid's and the rigid bands' per cell or row, gravity's per block, the
+list pipeline's per pair or row, its sums in row order on the lead), so
+the bits are one device's (the fluid's force sums on rigids and the
+rigid bands' scatters may reassociate: see their tests). State
+placement differs from ``lpe_tpu``: the state stays whole on the lead
+device (``mesh.devices[0]``), and each split system copies its inputs
+to the devices and its results back in a fixed order;
+``state_shardings`` names the lead for every leaf.
 ``lpe_tpu``'s ``_platform_cfg`` has no counterpart: the kernel wrappers
 choose a kernel or its plain version by the device of their tensors.
 """
@@ -47,9 +56,11 @@ def state_shardings(mesh: BandMesh, state: SimState):
     """The device of each leaf of ``state``: the mesh's lead device for
     every one. The state is not split; the work on it is. ``lpe_tpu``
     shards a leaf's leading axis when it is the entity axis (the bodies:
-    here gravity splits its receivers in blocks) or, for an ``rg_*`` leaf
-    but ``rg_flat``, when the mesh's size divides it (the cell axis: here
-    the grid rigid pipeline's y-row bands, when the size divides nbx); the
+    here gravity splits its receivers in blocks, and the list pipeline,
+    which works on per-pair rows gathered from the entity leaves, its
+    pairs and contact rows in runs) or, for an ``rg_*`` leaf but
+    ``rg_flat``, when the mesh's size divides it (the cell axis: here the
+    grid rigid pipeline's y-row bands, when the size divides nbx); the
     rest it replicates (see the module docstring)."""
     def dev(x):
         return mesh.lead
@@ -82,13 +93,13 @@ def uses_bands(scene: Scene, mesh: BandMesh) -> bool:
 
 
 def _entity_mesh(mesh: BandMesh):
-    """The mesh the gravity and grid rigid systems split over, or None."""
+    """The mesh gravity and both rigid pipelines split over, or None."""
     return mesh if mesh.size > 1 else None
 
 
 def build_sharded_tick(scene: Scene, mesh: BandMesh):
     """One tick over ``mesh``: the fluid in row bands when
-    ``uses_bands``, gravity and the grid rigid pipeline split when the mesh
+    ``uses_bands``, gravity and the rigid pipelines split when the mesh
     has more than one device (the module docstring), the rest on the lead
     device. ``lpe_tpu``'s ``donate`` has no counterpart (PyTorch runs
     eagerly)."""
@@ -103,7 +114,8 @@ def build_sharded_run(scene: Scene, mesh: BandMesh, *, ticks: int):
     blocks stay resident across the whole block, one build at its start
     and one readback at its end, and a tick's traffic between bands is the
     halo rows, three exchanges a sub-step; the gravity and rigid splits
-    copy their inputs out and their results back every tick."""
+    copy their inputs out and their results back every tick (the list
+    pipeline's solvers at every stage of every iteration)."""
     return build_run_fn(scene.spec, scene.cfg, ticks=ticks,
                         device=mesh.lead,
                         fluid_mesh=mesh if uses_bands(scene, mesh) else None,

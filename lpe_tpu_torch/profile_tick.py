@@ -4,8 +4,9 @@
 
 SCENE is any of dam, dam_split, dam_scatter, dam_mixed_h, dam_bands2,
 dam_bands4, simple_fluid, rigid, rigid_bands2, rigid_bands4, coupled,
-highlight, north, north_bands4, keplerian, ocean, galaxy_direct,
-galaxy_direct_shards4, galaxy, galaxy_shards4 (all by default).
+coupled_shards4, highlight, north, north_bands4, keplerian, ocean,
+galaxy_direct, galaxy_direct_shards4, galaxy, galaxy_shards4 (all by
+default).
 
 A block is 10 ticks: one ``build_run_fn(ticks=10)`` call for DAM_BREAK
 100k (the grid stays resident across the block), RIGID_STACKS 10k (the
@@ -29,8 +30,11 @@ RIGID_STACKS 10k's grid rigid pipeline in 2 and 4 y-row bands,
 ``galaxy_direct_shards4`` and ``galaxy_shards4`` the two galaxies with
 their gravity split by receiver blocks over 4 devices, ``north_bands4``
 the north star with its fluid and its grid rigids both in 4 bands (entity
-sharding, chip_smoke.py phase 24). Each mesh puts a band a card on a host
-with that many cards (``parallel.make_mesh``), else all on the one card.
+sharding, chip_smoke.py phase 24), ``coupled_shards4`` the coupled dam
+with its fluid in 4 row bands and its rigid list pipeline in 4 shards
+(runs of pairs and rows, chip_smoke.py phase 25). Each mesh puts a band
+a card on a host with that many cards (``parallel.make_mesh``), else all
+on the one card.
 Device time sums over the cards.
 For each it prints
 
@@ -51,11 +55,12 @@ For each it prints
 - for every scene, the device time per tick of each system's range
   (the PyTorch ops it runs, ``barnes_hut`` for gravity; the port's
   kernels fall in no range);
-- for the coupled dam and the highlight reel (the rigid list pipeline),
-  the device time per tick and the kernel launches per tick of its
-  ranges: the whole system, ``rigid.broadphase``, ``rigid.narrowphase``
-  (GJK, EPA, manifolds), ``rigid.compact`` (active-row compaction and
-  warm start), ``rigid.velocity`` and ``rigid.position``.
+- for the coupled dam (also in shards) and the highlight reel (the rigid
+  list pipeline), the device time per tick and the kernel launches per
+  tick of its ranges: the whole system, ``rigid.broadphase``,
+  ``rigid.narrowphase`` (GJK, EPA, manifolds), ``rigid.compact``
+  (active-row compaction and warm start), ``rigid.velocity`` and
+  ``rigid.position``.
 
 The card's name and power limit come first, as ``nvidia-smi`` gives them.
 """
@@ -86,7 +91,7 @@ MIXED_SMALL_H = 0.04   # dam_mixed_h: the odd-indexed particles' h
 DAM_BANDS = {"dam_bands2": 2, "dam_bands4": 4}   # scene -> row bands
 # entity sharding: scene -> (the single-device scene it splits, devices)
 SHARDED = {"rigid_bands2": ("rigid", 2), "rigid_bands4": ("rigid", 4),
-           "north_bands4": ("north", 4),
+           "north_bands4": ("north", 4), "coupled_shards4": ("coupled", 4),
            "galaxy_direct_shards4": ("galaxy_direct", 4),
            "galaxy_shards4": ("galaxy", 4)}
 RIGID_RANGES = ("rigid", "rigid.rows", "rigid.rebuild", "rigid.narrowphase")
@@ -291,7 +296,8 @@ def profile_scene(name, device):
           "port's kernels, launched through ctypes, fall in no range): "
           + ", ".join(f"{k} {v / 1e3 / BLOCK:.4f}" for k, v in st.items()),
           flush=True)
-    if name in ("coupled", "highlight"):       # the rigid list pipeline
+    if SHARDED.get(name, (name,))[0] in ("coupled", "highlight"):
+        # the rigid list pipeline
         rt = _range_times(prof, LIST_RANGES)
         nl = _range_launches(prof, LIST_RANGES)
         print(f"{label}: rigid list pipeline, device ms [launches] per "

@@ -5,7 +5,8 @@ the scenes it takes (``grid_dims`` is not None: more than
 only walls off the grid), the list pipeline (``pipeline.py``) for the
 rest. Over a ``mesh`` (``parallel.BandMesh``) of more than one device the
 grid pipeline runs in y-row bands when the mesh's size divides its cell
-rows; the list pipeline runs on ``device`` whatever the mesh."""
+rows; the list pipeline splits its narrowphase by runs of pairs and its
+solvers' row math by runs of rows."""
 from __future__ import annotations
 
 
@@ -16,4 +17,4 @@ def make_rigid(spec, cfg, *, device="cuda", mesh=None):
     if grid_dims(spec, cfg) is not None:
         return make_grid_rigid_system(spec, cfg, device=device, mesh=mesh)
     from .pipeline import make_rigid_system
-    return make_rigid_system(spec, cfg, device=device)
+    return make_rigid_system(spec, cfg, device=device, mesh=mesh)

@@ -32,6 +32,25 @@ orders:
   sliced off after;
 - lpe_tpu's perf-triage switch ``LPE_RIGID_ABLATE`` is not ported.
 
+Over a ``mesh`` (``parallel.BandMesh``) of more than one device the step
+is split as lpe_tpu's GSPMD splits its vmapped pairs and rows: the
+``max_pairs`` candidate pairs go to the devices in contiguous runs of
+whole pairs (``parallel.Runs``): the lead gathers the pairs' shapes, each
+device takes its run's and runs GJK, EPA, the circle closed form and the
+manifolds on them, and the normals, points, depths and masks come back
+to the lead device in pair order; the solvers split each stage
+segment's rows the same way (``solver.py``). The broadphase, the guard
+and its one host read, the compaction, the warm-start hash and the
+caches stay on the lead device: their ``[max_pairs]`` leaves are ones
+lpe_tpu's ``state_shardings`` replicates. Every op of a run is per pair or per
+row, and each body's impulses are summed on the lead in row order, so
+the split gives the single device's bits. ``step.shards`` is the number
+of pair runs (1 on one device; fewer than the mesh's size where there
+are fewer pairs than devices: the first devices then take a pair each,
+the lead the first) and
+``step.shard_stats`` the copies and bytes the split has moved since the
+step was built (``parallel.Runs``).
+
 Profiler ranges: ``rigid.broadphase``, ``rigid.narrowphase`` (GJK, EPA,
 circle pairs, manifolds), ``rigid.compact`` (active-row compaction and
 warm start), ``rigid.velocity`` and ``rigid.position``.
@@ -46,6 +65,7 @@ from torch.profiler import record_function
 from ...core.config import ScenarioSystemConfig
 from ...core.constants import MAX_POLY_VERTS, ShapeKind
 from ...core.numerics import sqrt, true_div
+from ...parallel import Runs
 from ...scene import SceneSpec
 from ...state import SimState
 from . import geometry as geo
@@ -137,7 +157,11 @@ def _pair_contacts(sa, sb, normal, pen, max_contacts):
 
 
 def make_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
-                      device="cuda"):
+                      device="cuda", mesh=None):
+    """The list pipeline's step; over a ``mesh`` of more than one device
+    (whose first device is ``device``) the narrowphase and the solvers'
+    row math run in contiguous runs over its devices (module
+    docstring)."""
     S = spec.n_solid
     rc = cfg.rigid
     bp = rc.broadphase
@@ -161,6 +185,12 @@ def make_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     # (lpe_tpu computes them and selects them nowhere)
     narrow_keys = ("pos", "angle", "verts", "vmask", "nverts") + \
         (("is_circle", "radius") if spec.any_rigid_circle else ())
+    devices = list(mesh.devices) if mesh is not None and mesh.size > 1 \
+        else None
+    # the pairs' runs; the solvers cut their rows over the same devices
+    # (Runs.over), and the copies and bytes all move are counted in
+    # pair_runs.stats from the step's build on
+    pair_runs = Runs(MAX_PAIRS, devices, dev)
 
     if use_grid_bp:
         # cells sized so that every non-big AABB (expanded by the slack)
@@ -399,7 +429,12 @@ def make_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         with record_function("rigid.narrowphase"):
             sa = _gather_shape(sh, ia, narrow_keys)
             sb = _gather_shape(sh, ib, narrow_keys)
-            nrm, pts, pens, valid_r = _narrowphase(sa, sb, pvalid)
+            # each run of pairs on its device, back in pair order
+            outs = [_narrowphase(*a) for a in zip(
+                pair_runs.cut_dict(sa), pair_runs.cut_dict(sb),
+                pair_runs.cut(pvalid))]
+            nrm, pts, pens, valid_r = (pair_runs.join(list(x))
+                                       for x in zip(*outs))
 
         with record_function("rigid.compact"):
             # the active rows: each pair's two deepest contacts (manifolds
@@ -437,11 +472,13 @@ def make_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         with record_function("rigid.velocity"):
             vel, omega, ln_c, lt_c = solve_velocity(
                 b.pos[:S], b.vel[:S], b.omega[:S], inv_m, inv_i,
-                ia_c, ib_c, n_c, pt_c, avalid, ln0, lt0, rc.solver)
+                ia_c, ib_c, n_c, pt_c, avalid, ln0, lt0, rc.solver,
+                pair_runs)
         with record_function("rigid.position"):
             pos, angle = solve_position(
                 b.pos[:S], b.angle[:S], inv_m, inv_i,
-                ia_c, ib_c, n_c, pt_c, pen_c, avalid, rc.position)
+                ia_c, ib_c, n_c, pt_c, pen_c, avalid, rc.position,
+                pair_runs)
 
         nb = b.replace(pos=_put(b.pos, S, pos), vel=_put(b.vel, S, vel),
                        angle=_put(b.angle, S, angle),
@@ -480,4 +517,7 @@ def make_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
 
     step.guard_reads = 0
     step.rebuilds = 0
+    step.mesh = mesh if devices is not None else None
+    step.shards = len(pair_runs)
+    step.shard_stats = pair_runs.stats
     return step

@@ -22,9 +22,9 @@ Tolerances:
   tests/test_torch_grid_rigid.py), so each tick starts lpe_tpu from the
   port's state with the port's grid tables (fresh warm starts after a
   rebuild), on which lpe_tpu's guard holds;
-- RANDOM_POLYGONS (the list pipeline, which stays on the lead device)
-  against lpe_tpu's sharded tick: tests/test_parallel.py:38-52's, pos
-  1e-5 m, vel 1e-4 m/s.
+- RANDOM_POLYGONS (the list pipeline, its narrowphase and solver rows in
+  8 shards) against lpe_tpu's sharded tick: tests/test_parallel.py:38-52's,
+  pos 1e-5 m, vel 1e-4 m/s.
 """
 import dataclasses
 
@@ -346,7 +346,7 @@ def test_grid_bands_match_lpe_tpus_sharded_tick(grid, jax_grid, D):
 
 
 def test_list_pipeline_matches_lpe_tpus_sharded_tick():
-    """RANDOM_POLYGONS (the rigid list pipeline, on the lead device) over
+    """RANDOM_POLYGONS (the rigid list pipeline, split in 8 shards) over
     an 8-device CPU mesh, 3 ticks, against lpe_tpu's sharded tick on its 8
     devices: tests/test_parallel.py:38-52."""
     from lpe_tpu.parallel.sharded import build_sharded_tick as jsharded
@@ -364,6 +364,7 @@ def test_list_pipeline_matches_lpe_tpus_sharded_tick():
     jt = jsharded(js, mesh)
     tick = build_sharded_tick(ts, cpu_mesh(8))
     assert not hasattr(tick.systems["rigid"], "bands")   # not the grid
+    assert tick.systems["rigid"].shards == 8
     s_j, s_t = jshard(mesh, js.state), ts.state
     for _ in range(TICKS):
         s_j, s_t = jt(s_j), tick(s_t)

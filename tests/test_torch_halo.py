@@ -366,7 +366,7 @@ def stacked_polygons_jax(seed=3, nx=12, ny=10, per=3):
     return b.finalize(cfg)
 
 
-@pytest.mark.parametrize("bands", [2, 3, 4])
+@pytest.mark.parametrize("bands", [2, 3, 4, 7, 8])
 def test_band_tick_with_saturated_coupling_windows(bands):
     """With the coupling's sorted window capped at 64 candidates
     (``coupling_window_rows``) below the 12 a cell row of stacked
@@ -397,6 +397,8 @@ def test_band_tick_with_saturated_coupling_windows(bands):
 def test_dryrun_tracers_cross_bands():
     from lpe_tpu_torch.parallel.dryrun import dryrun_multichip
     out = dryrun_multichip(4, device="cpu")
+    assert out["list_rigid"]["shards"] == 4
+    assert out["list_rigid"]["copies"] > 0
     assert out["crossings"] > 0
     assert sum(n > 0 for n in out["occupancy"]) >= 2
     assert out["dpos"] < POS and out["dvel"] < VEL
