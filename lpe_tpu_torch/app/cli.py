@@ -40,7 +40,9 @@ def main(argv=None):
     runp.add_argument("--size", type=int, default=600, help="frame size px")
     runp.add_argument("--checkpoint", help="write final state npz here")
     runp.add_argument("--resume", help="load initial state npz from here")
-    runp.add_argument("--profile", action="store_true")
+    runp.add_argument("--profile", action="store_true",
+                      help="print the tracer's span tree (host and device "
+                           "ms) at the end")
     runp.add_argument("--realtime", action="store_true")
 
     sub.add_parser("list", help="list scenarios")

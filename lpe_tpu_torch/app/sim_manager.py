@@ -98,17 +98,16 @@ class SimManager:
             torch.cuda.synchronize(self.device)
 
     def tick(self, n: int = 1):
-        with PROFILER.scope("tick"):
-            for _ in range(n):
-                self.state = self.tick_fn(self.state)
-            self.stats.ticks += n
+        for _ in range(n):
+            self.state = self.tick_fn(self.state)
+        self.stats.ticks += n
 
     def trace(self, log_dir: str, ticks: int = 10):
         """Capture a profile of ``ticks`` ticks (torch.profiler, CPU and,
         on a card, CUDA activity) and write it to ``log_dir/trace.json``
         as a Chrome trace. The counterpart of the reference's hierarchical
-        profiler printouts for the device's part of a tick (host-side
-        phases are covered by core/profiler.py scopes)."""
+        profiler printouts for the device's part of a tick; the port's
+        tracer (``core/profiler.py``) names its spans in it."""
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -126,7 +125,7 @@ class SimManager:
                                            width=width, height=height,
                                            color_scheme=self.color_scheme,
                                            debug=self.debug)
-        with PROFILER.scope("render"):
+        with PROFILER.scope("render", device=self.device):
             return self._renderer(self.state)
 
     def render_frame(self, width: int = 600, height: int = 600) -> np.ndarray:
@@ -160,7 +159,18 @@ class SimManager:
     def run(self, ticks: int = C.STEPS_PER_SECOND, *, realtime: bool = False,
             frame_sink=None, frame_every: int = 2, print_profile: bool = False):
         """Fixed-dt loop. ``frame_sink(frame_u8, tick_idx)`` gets a frame
-        every ``frame_every`` ticks (120 TPS / 2 = 60 FPS parity)."""
+        every ``frame_every`` ticks (120 TPS / 2 = 60 FPS parity). With
+        ``print_profile`` the tracer records the loop, and its span tree
+        (host and device ms) is printed at the end."""
+        if print_profile:
+            PROFILER.reset()
+            with PROFILER.recording():
+                stats = self._run(ticks, realtime, frame_sink, frame_every)
+            print(PROFILER.report())
+            return stats
+        return self._run(ticks, realtime, frame_sink, frame_every)
+
+    def _run(self, ticks, realtime, frame_sink, frame_every):
         spt = 1.0 / C.STEPS_PER_SECOND
         t_wall = time.perf_counter()
         window_t, window_ticks = t_wall, 0
@@ -188,6 +198,4 @@ class SimManager:
                     float(self.state.time_scale))
                 window_t, window_ticks = now, 0
         self.sync()
-        if print_profile:
-            print(PROFILER.report())
         return self.stats

@@ -42,6 +42,7 @@ import math
 import torch
 
 from ..core.numerics import scatter_add, sqrt, true_div
+from ..core.profiler import HOST, PROFILER
 
 (ST_X, ST_Y, ST_VX, ST_VY, ST_AX, ST_AY, ST_M, ST_ID, ST_OCC) = range(9)
 (M9_X, M9_Y, M9_VX, M9_VY, M9_M, M9_OCC, M9_HX, M9_HY, M9_ID) = range(9)
@@ -64,24 +65,28 @@ def rig_width(V: int) -> int:
 
 
 class KernelOp:
-    """A kernel with its plain version and its two counters."""
+    """A kernel with its plain version and its two counters. Each call is
+    an ``op.<name>`` span of the port's tracer (host time: the argument
+    checks, the parameter packing and the launch, or the plain run)."""
 
     def __init__(self, name, plain, launch):
         self.name = name
         self.plain = plain
         self._launch = launch
+        self._span = f"op.{name}"
         self.launches = 0
         self.plain_calls = 0
 
     def __call__(self, *args, **kw):
         dev = args[0].device
-        if dev.type == "cuda":
-            out = self._launch(*args, **kw)
-            self.launches += 1
-            return out
-        if dev.type == "cpu":
-            self.plain_calls += 1
-            return self.plain(*args, **kw)
+        with PROFILER.scope(self._span, HOST):
+            if dev.type == "cuda":
+                out = self._launch(*args, **kw)
+                self.launches += 1
+                return out
+            if dev.type == "cpu":
+                self.plain_calls += 1
+                return self.plain(*args, **kw)
         raise ValueError(f"{self.name}: no kernel for device {dev}")
 
 

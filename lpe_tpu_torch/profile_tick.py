@@ -188,8 +188,8 @@ def _scene(name, device):
 def _kernel_times(prof, ranges):
     """Device microseconds by kernel name (without its C++ signature and
     template arguments) over the profiled region. The spans that the
-    profiler draws on the device for the ``record_function`` ranges (a
-    system's name, ``rigid.*``) are not kernels and are left out."""
+    profiler draws on the device for the tracer's ranges (a system's
+    name, ``rigid.*``) are not kernels and are left out."""
     from torch.autograd import DeviceType
     out = collections.defaultdict(float)
     n = 0

@@ -30,11 +30,11 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..core.config import ScenarioSystemConfig
 from ..core.constants import MAX_POLY_VERTS, ShapeKind
 from ..core.numerics import scatter_add, sqrt
+from ..core.profiler import PROFILER
 from ..scene import SceneSpec
 from ..state import SimState
 
@@ -542,7 +542,7 @@ def make_renderer(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                   color_scheme: int = SCHEME_DEFAULT, debug: bool = False,
                   splat: str = "auto"):
     """``frame(state) -> uint8 [height, width, 3]`` on the state's device.
-    Each phase runs in a ``record_function`` range: ``render_fluid``,
+    Each phase runs in a span of the port's tracer: ``render_fluid``,
     ``render_solids``, ``render_gas``, ``render_debug``."""
     mpp = cfg.shared.meters_per_pixel * (600.0 / width)
     H, W = height, width
@@ -552,7 +552,7 @@ def make_renderer(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         dev = b.pos.device
         img = torch.zeros(H, W, 3, dtype=torch.float32, device=dev)
         if spec.n_liquid > 0:
-            with record_function("render_fluid"):
+            with PROFILER.scope("render_fluid"):
                 alpha = _fluid_layer(state, spec, H, W, mpp, splat)
             base = _vec(FLUID_BASE_COLOR, torch.float32, dev)
             img = img * (1 - alpha[:, :, None]) + base * alpha[:, :, None]
@@ -566,18 +566,18 @@ def make_renderer(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             color = torch.cat([b.color[:s0], fill,
                                b.color[s0 + spec.n_solid:]])
             st = state.replace(bodies=b.replace(color=color))
-        with record_function("render_solids"):
+        with PROFILER.scope("render_solids"):
             scol, salpha = _shape_masks(st, spec, spec.solid_start,
                                         spec.n_solid, H, W, mpp)
         img = torch.where(salpha[:, :, None] > 0, scol, img)
         if spec.n_gas > 0:                               # alpha 180/255
-            with record_function("render_gas"):
+            with PROFILER.scope("render_gas"):
                 gcol, galpha = _shape_masks(st, spec, spec.gas_start,
                                             spec.n_gas, H, W, mpp)
             ga = galpha[:, :, None] * (180.0 / 255.0)
             img = img * (1 - ga) + gcol * ga
         if debug:
-            with record_function("render_debug"):
+            with PROFILER.scope("render_debug"):
                 img = _debug_overlays(st, spec, img, H, W, mpp)
                 if spec.n_solid > 0:
                     img = _contact_overlays(st, spec, img, H, W, mpp)

@@ -9,15 +9,18 @@ resolves which systems exist for a scene at build time and returns one
 function ``SimState -> SimState``; ``build_run_fn`` advances a block of
 ticks, keeping the fluid grid resident across the block when it can. Both
 returned functions carry ``.systems``, the dict of their systems by name.
-PyTorch runs eagerly, so ``jit`` and ``donate`` have no counterpart here;
-each system runs inside a ``torch.profiler.record_function`` range of its
-name, as lpe_tpu's run inside a ``jax.named_scope``.
+PyTorch runs eagerly, so ``jit`` and ``donate`` have no counterpart here.
+Each call is a ``run`` span of the port's tracer (``core/profiler.py``;
+a tick function called inside a ``run`` opens none), each tick in it a
+``tick`` span, and each system a span of its name, as
+lpe_tpu's run inside a ``jax.named_scope``; ``tick.advance`` covers the
+tick counter's add, and ``fluid.grid_build`` and ``fluid.readback`` the
+resident grid's build and gather-back.
 """
 from __future__ import annotations
 
-from torch.profiler import record_function
-
 from ..core.config import ScenarioSystemConfig
+from ..core.profiler import HOST, PROFILER, ROOT
 from ..scene import SceneSpec
 from ..state import SimState
 from . import simple
@@ -50,16 +53,23 @@ def build_system_list(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
     return systems
 
 
+def _advance(state: SimState) -> SimState:
+    with PROFILER.scope("tick.advance"):
+        return state.replace(tick=state.tick + 1)
+
+
 def build_tick_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                   device="cuda", fluid_mesh=None, mesh=None):
     systems = build_system_list(spec, cfg, device=device,
                                 fluid_mesh=fluid_mesh, mesh=mesh)
 
     def tick(state: SimState) -> SimState:
-        for name, fn in systems:
-            with record_function(name):
-                state = fn(state)
-        return state.replace(tick=state.tick + 1)
+        with PROFILER.scope("run", ROOT, device), \
+                PROFILER.scope("tick", HOST):
+            for name, fn in systems:
+                with PROFILER.scope(name):
+                    state = fn(state)
+            return _advance(state)
 
     tick.systems = dict(systems)
     return tick
@@ -87,18 +97,20 @@ def build_run_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *, ticks: int,
 
     if not cross_tick:
         def run(state: SimState) -> SimState:
-            for _ in range(ticks):
-                for name, fn in systems:
-                    with record_function(name):
-                        state = fn(state)
-                state = state.replace(tick=state.tick + 1)
+            with PROFILER.scope("run", ROOT, device):
+                for _ in range(ticks):
+                    with PROFILER.scope("tick", HOST):
+                        for name, fn in systems:
+                            with PROFILER.scope(name):
+                                state = fn(state)
+                        state = _advance(state)
             return state
         run.systems = sysd
         return run
 
     def tick_ct(state: SimState, D):
         for name, fn in systems:
-            with record_function(name):
+            with PROFILER.scope(name):
                 if name == "fluid":
                     state, D = fl.grid_tick(state, D)
                 else:
@@ -107,13 +119,17 @@ def build_run_fn(spec: SceneSpec, cfg: ScenarioSystemConfig, *, ticks: int,
                         D = fl.grid_boundary(D)
                     elif name == "gravity":
                         D = fl.grid_gravity(state, D)
-        return state.replace(tick=state.tick + 1), D
+        return _advance(state), D
 
     def run(state: SimState) -> SimState:
-        D = fl.grid_build(state)
-        for _ in range(ticks):
-            state, D = tick_ct(state, D)
-        return fl.grid_readback(state, D)
+        with PROFILER.scope("run", ROOT, device):
+            with PROFILER.scope("fluid.grid_build"):
+                D = fl.grid_build(state)
+            for _ in range(ticks):
+                with PROFILER.scope("tick", HOST):
+                    state, D = tick_ct(state, D)
+            with PROFILER.scope("fluid.readback"):
+                return fl.grid_readback(state, D)
 
     run.systems = sysd
     return run

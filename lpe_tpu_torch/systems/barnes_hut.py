@@ -9,7 +9,8 @@ Two solvers, chosen when the system is built, as in lpe_tpu:
 2. **P3M** (larger scenes, ``ops/pm_gravity.py``): the S-rolled mesh far
    field, the exact short-range PP correction below the cutoff, and an exact
    direct sum over the few heavy bodies (mass >= ``heavy_threshold``), which
-   are never meshed.
+   are never meshed; the three parts are the tracer's ``barnes_hut.mesh``,
+   ``barnes_hut.heavy`` and ``barnes_hut.pp`` spans.
 
 Semantics, as in lpe_tpu and the reference (src/systems/barnes_hut.cpp):
 softened ``d2 = dx^2 + dy^2 + soft^2``; sources are active, non-boundary
@@ -31,6 +32,7 @@ import torch
 
 from ..core.config import ScenarioSystemConfig
 from ..core.constants import REAL_G
+from ..core.profiler import PROFILER
 from ..ops.pm_gravity import (make_heavy_direct, make_pm_gravity,
                               make_pp_correction)
 from ..parallel import split_runs
@@ -130,9 +132,13 @@ def make_barnes_hut(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             heavy = src & (b.mass >= bh.heavy_threshold)
             mesh_mass = torch.where(src & ~heavy, b.mass,
                                     torch.zeros_like(b.mass))
-            acc = pm(b.pos, mesh_mass) + heavy_direct(b.pos, b.mass, heavy)
+            with PROFILER.scope("barnes_hut.mesh"):
+                far = pm(b.pos, mesh_mass)
+            with PROFILER.scope("barnes_hut.heavy"):
+                acc = far + heavy_direct(b.pos, b.mass, heavy)
             if pp is not None:
-                acc = acc + pp(b.pos, mesh_mass)
+                with PROFILER.scope("barnes_hut.pp"):
+                    acc = acc + pp(b.pos, mesh_mass)
             acc = REAL_G * acc * rcv[:, None].to(acc.dtype)
         else:
             acc = _direct_sum_accel(b.pos, b.mass, src, rcv, soft2, chunk,

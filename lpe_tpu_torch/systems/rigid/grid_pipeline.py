@@ -26,7 +26,7 @@ The semantics are lpe_tpu's; the TPU layout is not kept:
 - ``lax.cond`` on the displacement guard becomes one host read of ``need``
   per tick (``step.guard_reads`` counts them, ``step.rebuilds`` the ticks
   that rebuilt), and ``fori_loop`` a Python loop;
-- profiler ranges ``rigid.rows`` (guard, rebuild, per-tick grids and the
+- tracer spans (``core/profiler.py``) ``rigid.rows`` (guard, rebuild, per-tick grids and the
   rows' mass selects; within it ``rigid.rebuild``) and
   ``rigid.narrowphase`` take the place of
   ``jax.named_scope``; the solvers are the rest of the system's range;
@@ -66,11 +66,11 @@ import math
 from types import SimpleNamespace
 
 import torch
-from torch.profiler import record_function
 
 from ...core.config import ScenarioSystemConfig
 from ...core.constants import ShapeKind
 from ...core.numerics import sqrt, true_div
+from ...core.profiler import PROFILER
 from ...scene import SceneSpec
 from ...state import SimState
 from . import geometry as geo
@@ -498,7 +498,7 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         step.guard_reads += 1
         if bool(need):                     # the tick's one host read
             step.rebuilds += 1
-            with record_function("rigid.rebuild"):
+            with PROFILER.scope("rigid.rebuild"):
                 grids = _rebuild(b)
         else:
             grids = (state.rg_flat, state.rg_table,
@@ -750,12 +750,12 @@ def make_grid_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
 
     def step(state: SimState) -> SimState:
         b = state.bodies
-        with record_function("rigid.rows"):
+        with PROFILER.scope("rigid.rows"):
             grids, tick_grids = _rows(state)
             W = [_part_inputs(p, state, grids, tick_grids) for p in parts]
 
         # ---- narrowphase: SAT + incident-edge clip over each part's rows
-        with record_function("rigid.narrowphase"):
+        with PROFILER.scope("rigid.narrowphase"):
             for w in W:
                 w.narrow = _plain_rows(w) if plain_rows else \
                     narrow(*w.nargs, nbx=nbx, layout=layout)

@@ -51,7 +51,7 @@ the lead the first) and
 ``step.shard_stats`` the copies and bytes the split has moved since the
 step was built (``parallel.Runs``).
 
-Profiler ranges: ``rigid.broadphase``, ``rigid.narrowphase`` (GJK, EPA,
+Tracer spans (``core/profiler.py``): ``rigid.broadphase``, ``rigid.narrowphase`` (GJK, EPA,
 circle pairs, manifolds), ``rigid.compact`` (active-row compaction and
 warm start), ``rigid.velocity`` and ``rigid.position``.
 """
@@ -60,11 +60,11 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.profiler import record_function
 
 from ...core.config import ScenarioSystemConfig
 from ...core.constants import MAX_POLY_VERTS, ShapeKind
 from ...core.numerics import sqrt, true_div
+from ...core.profiler import PROFILER
 from ...parallel import Runs
 from ...scene import SceneSpec
 from ...state import SimState
@@ -416,7 +416,7 @@ def make_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
         if walls_only[0] and slack == 0:
             return _no_pairs(state)
         sh = _solid_shapes(b, S, VS)
-        with record_function("rigid.broadphase"):
+        with PROFILER.scope("rigid.broadphase"):
             if slack > 0:
                 ia_c8, ib_c8, anc_p, anc_a = _guarded_pairs(state, b, sh)
                 pvalid = ia_c8 >= 0
@@ -426,7 +426,7 @@ def make_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                 ia, ib, pvalid = _broadphase(b, sh)
         ia32, ib32 = ia.to(i32), ib.to(i32)
 
-        with record_function("rigid.narrowphase"):
+        with PROFILER.scope("rigid.narrowphase"):
             sa = _gather_shape(sh, ia, narrow_keys)
             sb = _gather_shape(sh, ib, narrow_keys)
             # each run of pairs on its device, back in pair order
@@ -436,7 +436,7 @@ def make_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
             nrm, pts, pens, valid_r = (pair_runs.join(list(x))
                                        for x in zip(*outs))
 
-        with record_function("rigid.compact"):
+        with PROFILER.scope("rigid.compact"):
             # the active rows: each pair's two deepest contacts (manifolds
             # come deepest first), compacted to ACT rows
             rid = _first_set(valid_r & (row_c < 2), ACT, ROWS)
@@ -469,12 +469,12 @@ def make_rigid_system(spec: SceneSpec, cfg: ScenarioSystemConfig, *,
                 ln0 = torch.zeros_like(pen_c)
                 lt0 = torch.zeros_like(pen_c)
 
-        with record_function("rigid.velocity"):
+        with PROFILER.scope("rigid.velocity"):
             vel, omega, ln_c, lt_c = solve_velocity(
                 b.pos[:S], b.vel[:S], b.omega[:S], inv_m, inv_i,
                 ia_c, ib_c, n_c, pt_c, avalid, ln0, lt0, rc.solver,
                 pair_runs)
-        with record_function("rigid.position"):
+        with PROFILER.scope("rigid.position"):
             pos, angle = solve_position(
                 b.pos[:S], b.angle[:S], inv_m, inv_i,
                 ia_c, ib_c, n_c, pt_c, pen_c, avalid, rc.position,

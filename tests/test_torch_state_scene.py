@@ -137,8 +137,7 @@ def test_out_of_slice_configurations_raise():
     assert callable(make_fluid(spec, sc.cfg, device="cpu"))
 
 
-@pytest.mark.parametrize("name", ["coordinates", "debug", "profiler",
-                                  "sph_numpy"])
+@pytest.mark.parametrize("name", ["coordinates", "sph_numpy"])
 def test_host_helper_copies_equal_lpe_tpu(name):
     """The port's copies of lpe_tpu's host helpers and of its float64 SPH
     oracle (lpe_tpu/__init__.py imports jax, so the port keeps its own)
