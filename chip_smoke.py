@@ -111,12 +111,14 @@ Phases (any failure raises and exits non-zero, printing no result):
      timed beside its bound;
   19. build_galaxy(1000000), bench.py's galaxy on the P3M branch: the host
      build time, the PP correction's K, subdivision, ncells and
-     overflow_fraction, up to 3 blocks of 10 within 60 s (no port kernel,
-     no plain version, finite, peak memory), no host sync in a block and
-     two blocks equal to the bit, one tick against the float64 direct
-     sum (p95 < 0.01, lpe_tpu's P3M gate; also over the receivers whose
-     PP cell did not overflow), the mesh, PP and heavy parts timed
-     beside their bounds;
+     overflow_fraction, up to 3 blocks of 10 within 60 s (the PP kernel
+     once a tick, no other port kernel, no plain version, finite, peak
+     memory), no host sync in a block and two blocks equal to the bit,
+     one tick against the float64 direct sum (p95 < 0.01, lpe_tpu's P3M
+     gate; also over the receivers whose PP cell did not overflow), the
+     mesh, PP and heavy parts timed beside their bounds, the PP pass's
+     plain version timed and the kernel's gap to it, and nvcc's register
+     report of the PP kernel;
   20. PLANETARY_OCEAN (create_scenario), 60 ticks through drive: the
      stacked chain 10 times a tick and nothing else, the ring survives
      around the moon (lpe_tpu's gate), one tick of build_run_fn(ticks=1)
@@ -2009,14 +2011,20 @@ def run_galaxy(dev, card):
     """Phase 19: build_galaxy(GALAXY_N), bench.py's galaxy on the P3M
     branch: the host build time; the PP correction's K, subdivision,
     ncells and overflow_fraction at tick 0; up to 3 timed blocks within
-    GALAXY_BUDGET_S, no port kernel and no plain version, finite, their
-    peak memory; no host sync in a block and two blocks bitwise equal;
-    one tick against the float64 direct sum (p95 relative error < 0.01,
-    lpe_tpu's P3M gate), over all sampled receivers and over those whose
-    PP cell did not overflow; the mesh, the PP correction and the heavy
-    direct sum timed apart (CUDA events) beside their bounds. Returns
-    (launches, {part: (ms, bound ms, bound by)})."""
+    GALAXY_BUDGET_S, the PP kernel once a tick (pm_gravity.pp_pass) and no
+    other port kernel, no plain version, finite, their peak memory; no
+    host sync in a block and two blocks bitwise equal; one tick against
+    the float64 direct sum (p95 relative error < 0.01, lpe_tpu's P3M
+    gate), over all sampled receivers and over those whose PP cell did
+    not overflow; the mesh, the PP correction and the heavy
+    direct sum timed apart (CUDA events) beside their bounds; the PP
+    pass's plain version timed on the same inputs, the kernel's largest
+    gap to it over the largest plain value, and nvcc's report of the
+    kernel (registers, spills). Returns (launches, {part: (ms, bound ms,
+    bound by)}, the settled scene, the PP line)."""
     import torch
+    from lpe_tpu_torch.ops import _build
+    from lpe_tpu_torch.ops import pm_gravity as PM
     from lpe_tpu_torch.ops import rigid_kernels as RK
     from lpe_tpu_torch.ops import sph_kernels as SK
     from lpe_tpu_torch.scenarios.bench_scenes import build_galaxy
@@ -2035,9 +2043,10 @@ def run_galaxy(dev, card):
           f"subdivision {pp.subdivision}, ncells {pp.ncells}, "
           f"overflow_fraction at tick 0 "
           f"{pp.overflow_fraction(sc.state.bodies.pos):.6f}", flush=True)
-    ops = (*SK.OPS, *RK.OPS)
+    ops = (*SK.OPS, *RK.OPS, *PM.OPS)
     SK.reset_counters()
     RK.reset_counters()
+    PM.reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state, ticks, t0 = sc.state, 0, time.perf_counter()
@@ -2052,7 +2061,7 @@ def run_galaxy(dev, card):
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = {op.name: op.launches for op in ops if op.launches}
-    if launches or any(op.plain_calls for op in ops):
+    if launches != {"pp_pass": ticks} or any(op.plain_calls for op in ops):
         fail(f"{label}: launches {launches}, plain calls "
              f"{ {op.name: op.plain_calls for op in ops} }")
     for f in ("pos", "vel"):
@@ -2107,7 +2116,21 @@ def run_galaxy(dev, card):
               f"{bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x", flush=True)
     print(f"{label}: PP pairs this state needs {pairs:.6g} (live slots of "
           f"each resident body's {(2 * m + 1) ** 2} cells)", flush=True)
-    return launches, parts, (sc.spec, sc.cfg, state)
+    # the PP kernel against its plain version on these inputs
+    got, want = pp(b.pos, mm), PM.pp_pass.plain(b.pos, mm, pp.grid)
+    gap = float((got - want).abs().max() / want.abs().max())
+    zeros = bool(torch.equal(got.abs().sum(1) == 0, want.abs().sum(1) == 0))
+    plain_ms = cuda_ms(lambda: PM.pp_pass.plain(b.pos, mm, pp.grid), reps=2)
+    section = _build.build_log.split("== pp_pass.cu")[-1].split("\n== ")[0]
+    ptxas = [ln.strip() for ln in section.splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"{label}: pp kernel {parts['pp'][0]:.4f} ms against its plain "
+          f"version {plain_ms:.4f} ms; max |kernel - plain| over max |plain| "
+          f"{gap:.3e}, the same bodies 0 {zeros}; nvcc: {ptxas}", flush=True)
+    if not (gap <= 1e-5 and zeros):
+        fail(f"{label}: pp kernel gap {gap}, zeros equal {zeros}")
+    line = dict(plain_ms=plain_ms, kernel_vs_plain=gap, ptxas=ptxas)
+    return launches, parts, (sc.spec, sc.cfg, state), line
 
 
 def run_ocean(dev, card):
@@ -2792,12 +2815,14 @@ def timed_blocks(run, state, blocks=3, block=BLOCK):
     to 0 just before and read just after: (state, ticks/s, launches by
     name, plain calls by name)."""
     import torch
+    from lpe_tpu_torch.ops import pm_gravity as PM
     from lpe_tpu_torch.ops import rigid_kernels as RK
     from lpe_tpu_torch.ops import sph_kernels as SK
-    ops = (*SK.OPS, *RK.OPS)
+    ops = (*SK.OPS, *RK.OPS, *PM.OPS)
     torch.cuda.synchronize()
     SK.reset_counters()
     RK.reset_counters()
+    PM.reset_counters()
     t0 = time.perf_counter()
     for _ in range(blocks):
         state = run(state)
@@ -3216,7 +3241,8 @@ def profiled_launches(fn):
 
 def galaxy_shards(card, label, settled):
     """Phase 24c: a galaxy (its settled state from phase 18 or 19) in 2
-    and 4 shards through build_sharded_run(ticks=GRAVITY_BAND_BLOCK): no
+    and 4 shards through build_sharded_run(ticks=GRAVITY_BAND_BLOCK): on
+    P3M the PP kernel once a tick (one pass over the shards), no other
     port kernel and no plain version, the block equal to the single
     device's to the bit in every state field, kernel launches a tick
     (profiler), ticks/s beside the single device (each timed once, in
@@ -3241,7 +3267,8 @@ def galaxy_shards(card, label, settled):
         if step.devices is None or len(step.devices) != D:
             fail(f"{label} in {D} shards: gravity is not split")
         got, _, launches, plain = timed_blocks(run, state, 1, ticks)
-        if launches or plain:
+        want_l = {"pp_pass": ticks} if step.pp is not None else {}
+        if launches != want_l or plain:
             fail(f"{label} in {D} shards: launches {launches}, plain {plain}")
         differ = [n for part in ("", "bodies")
                   for n, u, w in state_fields(got, want, part)
@@ -3606,7 +3633,7 @@ def main(argv=None) -> int:
     paths["keplerian"] = run_keplerian(dev, card)
     paths["galaxy_direct"], direct, gal_direct = run_galaxy_direct(dev,
                                                                     card)
-    paths["galaxy"], gparts, gal_1m = run_galaxy(dev, card)
+    paths["galaxy"], gparts, gal_1m, pp_line = run_galaxy(dev, card)
     paths["planetary_ocean"], ocean = run_ocean(dev, card)
 
     # 21. the application layer: the CLI, the renderer, the HUD
@@ -3659,11 +3686,11 @@ def main(argv=None) -> int:
                 for name, (e, t, b) in res.items()}
         for scene, res in (("coupled_dam", coupled), ("north_star", north),
                            ("planetary_ocean", ocean)) if res}}), flush=True)
-    print(json.dumps({"gravity_parts": {
-        name: dict(ms=t, bound_ms=b, bound_by=by) for name, (t, b, by) in
-        (("direct_sum_100k", direct), *((f"{k}_1m", v)
-                                        for k, v in gparts.items()))}}),
-        flush=True)
+    gravity = {name: dict(ms=t, bound_ms=b, bound_by=by) for name, (t, b, by)
+               in (("direct_sum_100k", direct),
+                   *((f"{k}_1m", v) for k, v in gparts.items()))}
+    gravity["pp_1m"].update(pp_line)
+    print(json.dumps({"gravity_parts": gravity}), flush=True)
     print(json.dumps({"app": app}), flush=True)
     print(json.dumps({"mixed_h": mixed}), flush=True)
     print(json.dumps({"bands": bands}), flush=True)

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("common.cuh", "sph_pair.cuh", "stage.cuh", "couple.cuh",
            "narrow.cuh", "migrate.cu", "pair_sweep.cu", "coupling9.cu",
            "narrowphase.cu", "narrowphase_grid.cu", "density.cu", "force.cu",
-           "coupling.cu")
+           "coupling.cu", "pp_pass.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lpe_tpu_torch"
 # --fmad=false: no contraction of a*b+c into one rounding, so the kernels
 # round like the plain PyTorch ops they are held against. No fast math:
@@ -92,6 +92,16 @@ class NarrowGridParams(ctypes.Structure):
                 ("cls_big", _i * NG_MAX_CLS), ("pass_end", _i * NG_MAX_CLS)]
 
 
+class PPParams(ctypes.Structure):
+    # csrc/pp_pass.cu PPParams: the subdivision, cells a side, residents a
+    # cell, cells a strip, the first strip and the strips of this launch,
+    # threads a block; rc^2, the ramp's start and the float32 reciprocal
+    # of its width, the softener^2
+    _fields_ = [("m", _i), ("nc", _i), ("K", _i), ("T", _i), ("s0", _i),
+                ("strips", _i), ("threads", _i), ("rc2", _f), ("r0", _f),
+                ("inv_rw", _f), ("soft2", _f)]
+
+
 def couple_params(rows, K, W, S, NBIG, cn) -> CoupleParams:
     from .sph_kernels import rig_width
     mf = cn["max_force"]
@@ -125,6 +135,7 @@ _ENTRIES = {   # name -> (number of tensor arguments, params type)
     "lpe_migrate_h": (2, MigrateParams),
     "lpe_density_h": (2, SweepParams),
     "lpe_force_h": (3, SweepParams),
+    "lpe_pp_pass": (4, PPParams),
 }
 _lib = None
 build_log = ""           # nvcc's report (-Xptxas -v) of this process's build

@@ -281,3 +281,91 @@ def test_system_off_when_all_masses_small():
     ents = [dict(pos=(1e9, 1e9), mass=10.0), dict(pos=(2e9, 1e9), mass=20.0)]
     ts = _scenes(ents)[1]
     assert TB.make_barnes_hut(ts.spec, ts.cfg, device="cpu") is None
+
+
+def _layout_scene(kind, m):
+    """(pp, pos, mass) of one layout case: ``edges`` (bodies in the grid's
+    corner and edge cells, a crowded corner past K, bodies outside the
+    universe and on its far edge, the rest uniform), ``clump`` (the
+    500-body clump of test_pp_overflowing_clump_keeps_first_k_by_index)
+    or ``empty`` (every body outside the universe)."""
+    rng = np.random.default_rng(11 + m)
+    if kind == "clump":
+        sizing = (None, 8) if m == 1 else (30 * 128 * 128, 64)
+        pp = _pp_pair(*sizing, grid=1024)[1]
+        rc = 8.0 * UNI / 1024
+        pos = (np.full((500, 2), 0.5 * UNI) +
+               rng.normal(0, 0.05 * rc, (500, 2))).astype(np.float32)
+    else:
+        pp = _pp_pair(None if m == 1 else 2000, 16)[1]
+        w = pp.grid.ccell
+        pos = rng.uniform(0, UNI, (400, 2))
+        corners = np.array([[0.5, 0.5], [pp.grid.nc - 0.5, 0.5],
+                            [0.5, pp.grid.nc - 0.5],
+                            [pp.grid.nc - 0.5, pp.grid.nc - 0.5]])
+        pos[:40] = corners[np.arange(40) % 4] * w + \
+            rng.uniform(-0.4, 0.4, (40, 2)) * w
+        pos[40:80] = rng.uniform(0, 0.9 * w, (40, 2))      # past K
+        pos[80:100, 0] = rng.uniform(0, 0.5 * w, 20)        # left edge
+        pos[100:110] = rng.uniform(-0.5 * UNI, -1.0, (10, 2))
+        pos[110:115] = UNI                                  # outside
+        pos[115:120, 1] = 1.5 * UNI
+        if kind == "empty":
+            pos = pos - 2.0 * UNI
+        pos = pos.astype(np.float32)
+    mass = rng.uniform(1e18, 1e20, len(pos)).astype(np.float32)
+    return pp, pos, mass
+
+
+@pytest.mark.parametrize("kind", ["edges", "clump", "empty"])
+@pytest.mark.parametrize("m", [1, 2])
+def test_pp_layout_rows_are_each_receivers_runs(kind, m):
+    """The compact cell-sorted layout the PP kernel reads (``pp_layout``,
+    built by the card path's code): cstart is the exclusive scan of
+    min(count, K); the rows hold exactly the residents (the first K by
+    index of each cell) with their x, y, m and body index; and for each
+    receiver's cell, the runs of cells cx-m .. cx+m of rows cy-m .. cy+m
+    (the kernel reads each as one contiguous run of rows) hold the
+    residents of its (2m+1)^2 neighbour cells in (dy, dx, rank) order,
+    at the grid's edges and corners, in an overflowing cell, with bodies
+    outside the universe and on an empty grid."""
+    pp, pos, mass = _layout_scene(kind, m)
+    g = pp.grid
+    assert g.m == m
+    nc, K = g.nc, g.K
+    rows, body, cstart = (t.numpy() for t in pp.layout(
+        torch.from_numpy(pos), torch.from_numpy(mass)))
+    cid = pp.cells_of(torch.from_numpy(pos)).numpy()
+    res = {c: np.flatnonzero(cid == c)[:K] for c in np.unique(cid)
+           if c < nc * nc}
+    cnt = np.zeros(nc * nc, np.int64)
+    for c, b in res.items():
+        cnt[c] = len(b)
+    assert cstart.dtype == np.int32 and body.dtype == np.int32
+    assert np.array_equal(cstart, np.concatenate([[0], np.cumsum(cnt)]))
+    R = int(cstart[-1])
+    assert rows.shape == (len(pos) + 1, 4) and body.shape == (len(pos) + 1,)
+    if kind == "empty":
+        assert R == 0 and not res
+        return
+    if kind != "clump":
+        assert cnt.max() == K and (cid == nc * nc).sum() >= 20
+        assert all(cnt[c] > 0 for c in (0, nc - 1, nc * (nc - 1),
+                                        nc * nc - 1))
+    else:
+        assert (cid < nc * nc).sum() > R          # the clump overflows
+    b = body[:R]
+    assert np.array_equal(rows[:R, 0], pos[b, 0])
+    assert np.array_equal(rows[:R, 1], pos[b, 1])
+    assert np.array_equal(rows[:R, 2], mass[b])
+    assert (rows[:R, 3] == 0).all()
+    for c, own in res.items():
+        assert np.array_equal(b[cstart[c]:cstart[c + 1]], own)
+        cy, cx = divmod(c, nc)
+        want, got = [], []
+        for y in range(max(cy - m, 0), min(cy + m + 1, nc)):
+            lo, hi = max(cx - m, 0), min(cx + m + 1, nc)
+            got.append(b[cstart[y * nc + lo]:cstart[y * nc + hi]])
+            want += [res.get(y * nc + x, np.zeros(0, np.int64))
+                     for x in range(lo, hi)]
+        assert np.array_equal(np.concatenate(got), np.concatenate(want))
